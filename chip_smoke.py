@@ -2,23 +2,30 @@
 """
 Smoke run of pyshepseg_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels from pyshepseg_tpu_torch/csrc/, holds each against its plain
-PyTorch version on the card, then drives doShepherdSegmentation end to end
-at bench config1 (1024x1024) and at the default tile size (4096x4096).
+PyTorch version on the card, drives doShepherdSegmentation end to end at
+bench config1 (1024x1024) and at the default tile size (4096x4096), then
+drives the tiled driver doTiledShepherdSegmentation over an 8000x8000
+scene in 9 tiles of 4096^2 (serial, two worker threads and the 3-phase
+API, equal bit for bit), serially over a denser 8000x8000 scene whose
+tiles exceed K2's table, and over a 1536x1536 scene on the card and on
+the CPU (equal bit for bit).
 
     python3 chip_smoke.py
 
-numpy + torch only. Every phase raises on failure, so the script exits
-non-zero and prints no result line; it also fails where CUDA is absent or
+It imports numpy, torch and the port, nothing of JAX. Every phase raises
+on failure, so the script exits non-zero and prints no result line; it also fails where CUDA is absent or
 the package is missing. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 before it come the card's name and power limit as nvidia-smi reports them
-and the per-kernel JSON record.
+and the per-kernel JSON record, whose launch counts are those of the
+serial tiled run.
 """
 
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -27,12 +34,19 @@ import torch
 # the package lives beside this script in a checkout
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from pyshepseg_tpu_torch import _kernels, shepseg  # noqa: E402
+from pyshepseg_tpu_torch import _kernels, shepseg, tiling  # noqa: E402
+from pyshepseg_tpu_torch import io as rio, native  # noqa: E402
 from pyshepseg_tpu_torch.ops import clump, local_ccl, lut  # noqa: E402
 from pyshepseg_tpu_torch.ops.sync import to_host  # noqa: E402
+from pyshepseg_tpu_torch.timinghooks import Timers  # noqa: E402
 
 CONFIG1 = dict(numClusters=60, clusterSubsamplePcnt=1, minSegmentSize=50,
                maxSpectralDiff='auto', fourConnected=True)
+# config1's settings as doTiledShepherdSegmentation takes them
+TILED = dict(numClusters=60, minSegmentSize=50, maxSpectralDiff='auto',
+             fourConnected=True)
+INTERVALS = ("reading", "segmentation", "stitchwait", "stitchtiles",
+             "stitchfinalize", "walltime")
 SOURCES = {"local_ccl": ("pyshepseg_tpu_torch/csrc/local_ccl.cu",
                          "pyshepseg_tpu/ops/pallas_ccl.py:92"),
            "lut_gather": ("pyshepseg_tpu_torch/csrc/lut_gather.cu",
@@ -66,6 +80,64 @@ def make_image(h, w, nbands, ncells=400, seed=7, device="cuda"):
     img = palette[cells].transpose(2, 0, 1)
     img = img + rng.normal(0, 8.0, img.shape)
     return np.clip(img, 0, 65535).astype(np.uint16)
+
+
+def make_scene(h, w, nbands, ncells, seed=7, device="cuda", band_rows=256,
+               reach=400):
+    """A whole scene like make_image's tiles (Voronoi patches + noise,
+    uint16), computed one band of rows at a time so device memory stays
+    bounded: each band searches only the centres within ``reach`` rows of
+    it, and every pixel's nearest centre is checked to lie within
+    ``reach``, so no centre outside the band's window can be nearer.
+    Noise is drawn on the device from a generator seeded with ``seed``."""
+    rng = np.random.default_rng(seed)
+    centres = torch.from_numpy(rng.uniform(
+        0, [h, w], size=(ncells, 2)).astype(np.float32)).to(device)
+    palette = torch.from_numpy(rng.integers(
+        100, 4000, size=(ncells, nbands)).astype(np.float32)).to(device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    xx = torch.arange(w, dtype=torch.float32, device=device)[None, :, None]
+    img = np.empty((nbands, h, w), np.uint16)
+    for y0 in range(0, h, band_rows):
+        y1 = min(h, y0 + band_rows)
+        near = torch.nonzero((centres[:, 0] >= y0 - reach) &
+                             (centres[:, 0] < y1 + reach)).squeeze(1)
+        yy = torch.arange(y0, y1, dtype=torch.float32,
+                          device=device)[:, None, None]
+        cells = torch.zeros((y1 - y0, w), dtype=torch.int64, device=device)
+        best = torch.full((y1 - y0, w), float("inf"), device=device)
+        for start in range(0, near.shape[0], 64):
+            c = centres[near[start:start + 64]]
+            d = (yy - c[:, 0]) ** 2 + (xx - c[:, 1]) ** 2
+            val, idx = torch.min(d, dim=-1)
+            upd = val < best
+            cells = torch.where(upd, near[start + idx], cells)
+            best = torch.where(upd, val, best)
+        if best.max().item() > reach ** 2:
+            raise AssertionError("make_scene: a pixel of rows %d-%d has no "
+                                 "centre within %d px" % (y0, y1, reach))
+        band = palette[cells].permute(2, 0, 1)
+        band = band + torch.randn(band.shape, generator=gen,
+                                  device=device) * 8.0
+        img[:, y0:y1] = band.clamp(0, 65535).to(torch.int32).cpu().numpy()
+    return img
+
+
+def write_scene(path, img):
+    nbands, h, w = img.shape
+    ds = rio.create(path, w, h, nbands, img.dtype)
+    for b in range(nbands):
+        ds.GetRasterBand(b + 1).WriteArray(img[b])
+    ds.FlushCache()
+
+
+def read_seg(path):
+    """(segment band, RAT histogram) of a tiled output raster."""
+    band = rio.open(path).GetRasterBand(1)
+    rat = band.GetDefaultRAT()
+    hist = rat.ReadAsArray(rat.GetColOfUsage(rio.GFU_PixelCount))
+    return band.ReadAsArray(), np.asarray(hist, dtype=np.int64)
 
 
 def random_clusters(rng, shape, nclusters=4, null_frac=0.1):
@@ -136,12 +208,18 @@ def phase_build():
     secs = _kernels.build(force=True)
     _kernels.lib()
     print("built %s in %.2f s" % (_kernels.LIB_PATH, secs))
+    print("host stitch loops (g++): %s" % (
+        native.LIB_PATH if native.available() else
+        "not built, numpy fallback"))
 
 
 def phase_k1(dev, rng):
     phase("3 K1 local_ccl vs plain version (tolerance: exact)")
+    # (4096, 4096) is the cluster image of one default tile, the shape K1
+    # runs at on the tiled path
     for shape, block in [((200, 328), 32), ((1000, 1000), None),
-                         ((517, 771), 32), ((256, 384), None)]:
+                         ((517, 771), 32), ((256, 384), None),
+                         ((4096, 4096), None)]:
         for four in (True, False):
             raw = random_clusters(rng, shape)
             if block is None:
@@ -157,6 +235,13 @@ def phase_k1(dev, rng):
                                                         block=(by, bx))
             check_equal(got, want, "K1 %s block %s four=%s"
                         % (shape, (by, bx), four))
+            if shape == (4096, 4096):
+                print("K1 at 4096^2 four=%s: kernel %.3f ms, plain %.2f ms"
+                      % (four, cuda_ms(lambda: local_ccl.local_ccl_blocks(
+                          img_t, 0, four, block=(by, bx))),
+                         cuda_ms(lambda: local_ccl.local_ccl_blocks_reference(
+                             img_t, 0, four, block=(by, bx)),
+                             reps=3, warmup=1)))
             raw_t = torch.from_numpy(raw).to(dev)
             seg_k, n_k, _ = clump.clump_labels(raw_t, 0, four)
             seg_p, n_p, _ = clump.clump_labels(
@@ -171,9 +256,12 @@ def phase_k1(dev, rng):
 
 def phase_k2(dev, rng):
     phase("4 K2 lut_gather vs plain version (tolerance: exact)")
+    # (72000, 24000) is a graph-pass gather of a 4096^2 tile: 2E indices
+    # from a table of capacity entries
     for n_idx, c, two_d in [((1024, 1024), 4096, True),
                             ((777, 1031), 32768, True),
                             (26000, 13000, False), (123457, 32768, False),
+                            (72000, 24000, False),
                             ((4096, 4096), 13000, True)]:
         table = torch.from_numpy(rng.integers(
             0, 2 ** 32, size=c, dtype=np.int64)).to(dev)
@@ -287,6 +375,202 @@ def phase_tile(dev):
              syncs, walls[0], walls[1], peak / 2 ** 20, launches))
 
 
+def check_mosaic(seg, hist, maxSegId, hasEmpty, npix, what):
+    """Every pixel labelled, ids exactly 1..maxSegId, RAT == counts."""
+    if hasEmpty:
+        raise AssertionError("%s: hasEmptySegments" % what)
+    if int(hist.sum()) != npix:
+        raise AssertionError("%s: histogram sums to %d, not %d"
+                             % (what, hist.sum(), npix))
+    if (len(hist) != maxSegId + 1 or hist[0] != 0 or
+            np.count_nonzero(hist[1:]) != maxSegId or
+            int(seg.max()) != maxSegId):
+        raise AssertionError("%s: ids do not cover exactly 1..%d"
+                             % (what, maxSegId))
+    counts = np.bincount(seg.ravel(), minlength=len(hist))
+    counts[0] = 0
+    if not np.array_equal(counts, hist):
+        raise AssertionError("%s: RAT histogram differs from the raster"
+                             % what)
+
+
+def report_run(name, wall, npix, timings, peak, ntiles, launches):
+    totals = timings.makeSummaryDict()
+    ivals = " ".join("%s %.3f" % (k, totals[k]['total'])
+                     for k in INTERVALS if k in totals)
+    print("%s: %d tiles, wall %.3f s, %.2f Mpix/s, peak %.1f MiB, "
+          "launches %s | Timers (s): %s"
+          % (name, ntiles, wall, npix / 1e6 / wall, peak / 2 ** 20,
+             launches, ivals))
+
+
+def scene_file(tmp, h, w, ncells):
+    """Make an (h, w) 4-band scene of ``ncells`` cells, write it as
+    ``.npseg`` and fit k-means to its whole-file subsample on the card.
+    Returns (path, kmeans)."""
+    t0 = time.time()
+    img = make_scene(h, w, 4, ncells=ncells)
+    inpath = os.path.join(tmp, "scene%d.npseg" % ncells)
+    write_scene(inpath, img)
+    del img
+    inDs = rio.open(inpath)
+    km, pcnt, _ = tiling.fitSpectralClustersWholeFile(
+        inDs, [1, 2, 3, 4], 60, None, None, True, device="cuda")
+    print("scene of %d cells made, written and k-means fitted on the card "
+          "(%.1f%% subsample, %d iterations) in %.1f s"
+          % (ncells, pcnt, km.n_iter_, time.time() - t0))
+    if not tiling.DeviceSceneCache.fitsOnDevice(inDs, [1, 2, 3, 4], "cuda"):
+        raise AssertionError("tiled: the scene does not fit the cache")
+    return inpath, km
+
+
+def tiled_run(name, inpath, out, km, cfg, npix):
+    """One doTiledShepherdSegmentation at the default tile with config1's
+    settings, counted from 0; returns (result, launch counts)."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = tiling.doTiledShepherdSegmentation(
+        inpath, out, concurrencyCfg=cfg, tileSize=4096, overlapSize=1024,
+        kmeansObj=km, device="cuda", **TILED)
+    wall = time.time() - t0
+    launches = read_counts()
+    ntiles = res.numTileRows * res.numTileCols
+    if ntiles != 9:
+        raise AssertionError("%s: %d tiles, not 9" % (name, ntiles))
+    report_run(name, wall, npix, res.timings,
+               torch.cuda.max_memory_allocated(), ntiles, launches)
+    return res, launches
+
+
+def phase_tiled(tmp):
+    """8000^2 scene, default tile 4096 / overlap 1024 (uniform grid: 3x3
+    tiles of 4096^2), config1's settings. Serial with the scene cache,
+    two worker threads, and the 3-phase API must agree bit for bit.
+    Returns the serial run's launch counts."""
+    phase("7 tiled, 8000x8000 scene, default tile")
+    h = w = 8000
+    # 4000 cells: with k-means fitted to the whole scene, a 4096^2 tile
+    # of this scene has 16-27 K clumps, so every tile stays under K2's
+    # 32768-entry table and K2 runs on each (15000 cells give 51-60 K,
+    # see phase_tiled_dense)
+    inpath, km = scene_file(tmp, h, w, 4000)
+    runs = {}
+    for name, cfg in [
+            ("serial", tiling.SegmentationConcurrencyConfig(
+                deviceSceneCache=True)),
+            ("threads", tiling.SegmentationConcurrencyConfig(
+                concurrencyType=tiling.CONC_THREADS, numWorkers=2,
+                tileCompletionTimeout=600))]:
+        out = os.path.join(tmp, name + ".npseg")
+        res, launches = tiled_run(name, inpath, out, km, cfg, h * w)
+        runs[name] = (out, res.maxSegId, res.hasEmptySegments, launches)
+
+    # the 3-phase API: prepare, one doOne per tile to a file, finalize
+    timings = Timers()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with timings.interval("walltime"):
+        (ds, bn, km3, _, null3, tileInfo) = (
+            tiling.doTiledShepherdSegmentation_prepare(
+                inpath, tileSize=4096, overlapSize=1024, kmeansObj=km,
+                device="cuda"))
+        names = {}
+        with timings.interval("segmentation"):
+            for (col, row) in sorted(tileInfo.tiles):
+                names[(col, row)] = os.path.join(
+                    tmp, "tile_%d_%d.npseg" % (col, row))
+                tiling.doTiledShepherdSegmentation_doOne(
+                    ds, names[(col, row)], tileInfo, col, row, bn, null3,
+                    km3, minSegmentSize=TILED["minSegmentSize"],
+                    maxSpectralDiff=TILED["maxSpectralDiff"],
+                    fourConnected=TILED["fourConnected"], device="cuda")
+        out = os.path.join(tmp, "3phase.npseg")
+        with timings.interval("stitchtiles"):
+            (maxSegId, hasEmpty,
+             _) = tiling.doTiledShepherdSegmentation_finalize(
+                ds, out, names, tileInfo, 1024, tmp)
+    report_run("3-phase (segmentation = read + segment + write per tile)",
+               time.time() - t0, h * w, timings,
+               torch.cuda.max_memory_allocated(), len(names), read_counts())
+    runs["3-phase"] = (out, maxSegId, hasEmpty, read_counts())
+
+    seg0, hist0 = read_seg(runs["serial"][0])
+    check_mosaic(seg0, hist0, runs["serial"][1], runs["serial"][2], h * w,
+                 "tiled serial")
+    for name in ("threads", "3-phase"):
+        seg, hist = read_seg(runs[name][0])
+        if (not np.array_equal(seg, seg0) or
+                not np.array_equal(hist, hist0) or
+                runs[name][1:3] != runs["serial"][1:3]):
+            raise AssertionError("tiled: %s differs from serial" % name)
+    serial = runs["serial"][3]
+    if serial["local_ccl"] < 9 or serial["lut_gather"] < 1:
+        raise AssertionError("tiled: serial run launched K1 %d times and "
+                             "K2 %d times" % (serial["local_ccl"],
+                                              serial["lut_gather"]))
+    print("tiled 8000^2: serial == threads == 3-phase bit for bit; %d "
+          "segments, no empty ids, histogram sums to %d"
+          % (runs["serial"][1], hist0.sum()))
+    return serial
+
+
+def phase_tiled_dense(tmp):
+    """The 8000^2 scene at the density of phase 6's tile (15000 cells),
+    serial with the scene cache: with k-means fitted to the whole scene
+    most tiles then exceed K2's table, so the graph passes gather by
+    plain indexing. Reports its own launch counts and Timers."""
+    phase("7b tiled, 8000x8000 scene at 15000 cells, serial")
+    h = w = 8000
+    inpath, km = scene_file(tmp, h, w, 15000)
+    out = os.path.join(tmp, "dense.npseg")
+    res, launches = tiled_run(
+        "dense serial", inpath, out, km,
+        tiling.SegmentationConcurrencyConfig(deviceSceneCache=True), h * w)
+    seg, hist = read_seg(out)
+    check_mosaic(seg, hist, res.maxSegId, res.hasEmptySegments, h * w,
+                 "tiled dense")
+    if launches["local_ccl"] < 9:
+        raise AssertionError("tiled dense: K1 launched %d times"
+                             % launches["local_ccl"])
+    print("tiled 8000^2 at 15000 cells: %d segments, no empty ids, "
+          "histogram sums to %d, launches %s"
+          % (res.maxSegId, hist.sum(), launches))
+
+
+def phase_tiled_cpu(tmp):
+    """1536^2 scene in 2x2 tiles of 1024^2: card == CPU bit for bit."""
+    phase("8 tiled, card vs CPU")
+    h = w = 1536
+    img = make_scene(h, w, 4, ncells=900, seed=11)
+    inpath = os.path.join(tmp, "small.npseg")
+    write_scene(inpath, img)
+    km, _, _ = tiling.fitSpectralClustersWholeFile(
+        rio.open(inpath), [1, 2, 3, 4], 60, None, None, True, device="cuda")
+    got = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(tmp, "small_%s.npseg" % device)
+        reset_counts()
+        t0 = time.time()
+        res = tiling.doTiledShepherdSegmentation(
+            inpath, out, tileSize=1024, overlapSize=256, kmeansObj=km,
+            device=device, **TILED)
+        print("%s: %d x %d tiles, %d segments, %.3f s, launches %s"
+              % (device, res.numTileRows, res.numTileCols, res.maxSegId,
+                 time.time() - t0, read_counts()))
+        got[device] = (read_seg(out), res.maxSegId, res.hasEmptySegments)
+    (seg_g, hist_g), max_g, empty_g = got["cuda"]
+    (seg_c, hist_c), max_c, empty_c = got["cpu"]
+    check_mosaic(seg_g, hist_g, max_g, empty_g, h * w, "tiled 1536^2")
+    if (not np.array_equal(seg_g, seg_c) or not np.array_equal(hist_g, hist_c)
+            or (max_g, empty_g) != (max_c, empty_c)):
+        raise AssertionError("tiled 1536^2: card and CPU differ at %d "
+                             "pixels" % (seg_g != seg_c).sum())
+    print("tiled 1536^2: card == CPU bit for bit (raster, histogram, "
+          "maxSegId %d)" % max_g)
+
+
 def main():
     kind, smi = phase_device()
     dev = torch.device("cuda")
@@ -294,8 +578,14 @@ def main():
     rng = np.random.default_rng(0)
     phase_k1(dev, rng)
     phase_k2(dev, rng)
-    launches, records = phase_config1(dev)
+    config1_launches, records = phase_config1(dev)
     phase_tile(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches = phase_tiled(tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_tiled_dense(tmp)
+        phase_tiled_cpu(tmp)
+    print("config1 launches (in-memory path):", config1_launches)
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], launches=launches[name],
                     **records[name]) for name in ("local_ccl", "lut_gather")]

@@ -9,12 +9,18 @@ two Pallas kernels of the JAX package are CUDA C++ kernels for Hopper
 (``csrc/``), built with ``nvcc`` at first use (see :mod:`._kernels`).
 
 Covered so far: in-memory segmentation,
-:func:`pyshepseg_tpu_torch.shepseg.doShepherdSegmentation`. Every public
-entry point takes an explicit ``device`` (default ``"cuda"``, which raises
-when CUDA is absent); on a CPU device each kernel wrapper runs its plain
-PyTorch version.
+:func:`pyshepseg_tpu_torch.shepseg.doShepherdSegmentation`; the tiled
+driver :func:`pyshepseg_tpu_torch.tiling.doTiledShepherdSegmentation` with
+its stitch, the CONC_NONE / CONC_THREADS / CONC_SUBPROC / CONC_FARGATE
+backends and the 3-phase API; :mod:`.utils`, :mod:`.timinghooks`, and the
+``run_seg`` and segmentation-worker command lines. Every public entry
+point that computes takes an explicit ``device`` (default ``"cuda"``,
+which raises when CUDA is absent); on a CPU device each kernel wrapper
+runs its plain PyTorch version.
 
-This package imports torch and numpy only, never JAX.
+This package imports torch and numpy, never JAX nor the JAX package. Its
+raster I/O (:mod:`.io`, the ``.npseg`` driver that both packages share)
+and host flood fill and stitch loops (:mod:`.native`) are its own.
 """
 
 SHEPSEG_TPU_TORCH_VERSION = "0.1.0"

@@ -33,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def torch_device(device):
@@ -99,6 +100,14 @@ def check(code, name):
     """Raise when a launch returned a CUDA error code."""
     if code != 0:
         raise RuntimeError("%s launch failed: CUDA error %d" % (name, code))
+
+
+def count(fn, attr="launches"):
+    """Add one to the counter ``fn.<attr>``. Under a lock: the tiled
+    driver's worker threads launch kernels concurrently, and a bare
+    ``+= 1`` could lose an update."""
+    with _count_lock:
+        setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 def stream_ptr(t):

@@ -19,7 +19,8 @@ clump IDs bit for bit.
 
 Only the JAX package's global-sweep path is ported. Its two-level
 boundary-root merge gives identical output by construction and is left for
-later, as is the reference's ``maxClumpSize`` cap.
+later. The reference's ``maxClumpSize`` cap runs the host flood fill
+(pyshepseg_tpu_torch.native), as the JAX package does.
 """
 
 import numpy as np
@@ -172,11 +173,18 @@ def clump(img, ignoreVal, fourConnected=True, clumpId=1, maxClumpSize=None,
     (reference: pyshepseg/shepseg.py:452-541). Returns
     ``(clumpimg, nextClumpId)`` where clumpimg (uint32) has IDs starting at
     ``clumpId`` in scan order and nextClumpId is the highest ID used + 1.
-    The reference's ``maxClumpSize`` cap is not ported yet.
+
+    ``maxClumpSize`` opts into the reference's MAX_CLUMP_SIZE cap
+    semantics (splitting big clumps in flood-fill stack order,
+    shepseg.py:477-481). The cap's geometry is sequential, so that path
+    runs the native C++ flood fill on the host
+    (pyshepseg_tpu_torch/native/ccl.cpp) and ``device`` is not used.
     """
-    if maxClumpSize is not None:
-        raise NotImplementedError("maxClumpSize is not ported yet")
     device = _kernels.torch_device(device)
+    if maxClumpSize is not None:
+        from ..native import flood_fill_clump
+        return flood_fill_clump(img, ignoreVal, fourConnected,
+                                maxClumpSize, clumpId)
     img_t = torch.from_numpy(
         np.ascontiguousarray(img).astype(np.int32)).to(device)
     seg, num, _ = clump_labels(img_t, int(ignoreVal),

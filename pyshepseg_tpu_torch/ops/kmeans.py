@@ -18,6 +18,7 @@ JAX package's draws, so tests share fitted centres through
 """
 
 import contextlib
+import threading
 
 import numpy as np
 import torch
@@ -26,15 +27,32 @@ from .constants import SEGNULLVAL, MINSEGID
 from .. import _kernels
 
 
+_tf32_lock = threading.Lock()
+_tf32_users = 0
+_tf32_saved = None
+
+
 @contextlib.contextmanager
 def _fp32_matmul():
-    """Full-float32 products for the body: TF32 off, restored after."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+    """Full-float32 products for the body: TF32 off, restored after.
+
+    The flag is process-global and the tiled driver's worker threads
+    enter this concurrently, so it is reference-counted: the first thread
+    in saves the user's setting and turns TF32 off, the last one out
+    restores it. No body runs with TF32 on while another is inside."""
+    global _tf32_users, _tf32_saved
+    with _tf32_lock:
+        if _tf32_users == 0:
+            _tf32_saved = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _tf32_users += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        with _tf32_lock:
+            _tf32_users -= 1
+            if _tf32_users == 0:
+                torch.backends.cuda.matmul.allow_tf32 = _tf32_saved
 
 
 def _half_sq_norms(centers):

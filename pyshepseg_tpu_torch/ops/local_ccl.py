@@ -113,7 +113,7 @@ def local_ccl_blocks(img, ignore_val, four_connected: bool, block=None):
             img.data_ptr(), out.data_ptr(), h, w, by, bx, int(ignore_val),
             int(bool(four_connected)), _kernels.stream_ptr(img))
     _kernels.check(code, "local_ccl")
-    local_ccl_blocks.launches += 1
+    _kernels.count(local_ccl_blocks)
     return out
 
 

@@ -65,7 +65,7 @@ def lut_gather(idx, table):
             idx32.data_ptr(), tab32.data_ptr(), out.data_ptr(),
             idx32.numel(), tab32.shape[0], _kernels.stream_ptr(idx))
     _kernels.check(code, "lut_gather")
-    lut_gather.launches += 1
+    _kernels.count(lut_gather)
     if table.dtype == torch.int64:
         return out.to(torch.int64) & 0xFFFFFFFF
     return out

@@ -141,3 +141,50 @@ def relabelSegments(seg, segSize, minSegId, device="cuda"):
     size_t = torch.from_numpy(np.asarray(segSize).astype(np.int64)).to(device)
     sub = relabel_subtract(size_t, int(minSegId)).cpu().numpy()
     seg[...] = (seg - sub[seg]).astype(SegIdType)
+
+
+class SegmentLocations:
+    """
+    CSR index of per-segment pixel locations — the static-shape TPU-era
+    replacement for the reference's ``RowColArray`` typed dict
+    (reference: shepseg.py:816-915). Built once with a stable sort; lookup
+    is O(1) slicing. Pixel order within a segment is row-major scan order,
+    matching the order the reference's ``makeSegmentLocations`` appends in.
+    """
+
+    def __init__(self, seg):
+        seg = np.asarray(seg)
+        self.shape = seg.shape
+        flat = seg.ravel()
+        order = np.argsort(flat, kind="stable")
+        sorted_ids = flat[order]
+        self.maxSegId = int(flat.max()) if flat.size else 0
+        # starts[k] .. starts[k+1] are the sorted positions of segment k
+        self.starts = np.searchsorted(
+            sorted_ids, np.arange(self.maxSegId + 2, dtype=np.int64))
+        self.order = order
+
+    def __contains__(self, segId):
+        segId = int(segId)
+        return (0 <= segId <= self.maxSegId and
+                self.starts[segId + 1] > self.starts[segId])
+
+    def getSegmentIndices(self, segId):
+        """Return (rows, cols) arrays for the given segment ID."""
+        segId = int(segId)
+        sl = self.order[self.starts[segId]:self.starts[segId + 1]]
+        w = self.shape[1]
+        return (sl // w).astype(np.uint32), (sl % w).astype(np.uint32)
+
+    def rowcols(self, segId):
+        """Return an (n, 2) array of (row, col) pixel coordinates."""
+        r, c = self.getSegmentIndices(segId)
+        return np.stack([r, c], axis=1)
+
+
+def makeSegmentLocations(seg, segSize=None):
+    """
+    Host API matching the reference name (reference: shepseg.py:880-915).
+    ``segSize`` is accepted for signature compatibility but not needed.
+    """
+    return SegmentLocations(seg)

@@ -7,10 +7,12 @@ device. Every such wait goes through this module, so a run can count them:
 ``to_host.syncs`` is a plain integer that callers may reset and read.
 """
 
+from .._kernels import count
+
 
 def to_host(t):
     """A small tensor as Python values (waits for the device). Counted."""
-    to_host.syncs += 1
+    count(to_host, "syncs")
     return t.tolist()
 
 
@@ -20,5 +22,5 @@ to_host.syncs = 0
 def masked(t, mask):
     """``t[mask]``: the result's size depends on the data, so this waits
     for the device too. Counted in ``to_host.syncs``."""
-    to_host.syncs += 1
+    count(to_host, "syncs")
     return t[mask]

@@ -20,7 +20,8 @@ from . import _kernels
 from .ops.constants import SegIdType, SEGNULLVAL, MINSEGID  # noqa: F401
 from .ops.clump import clump, clump_labels  # noqa: F401
 from .ops.segreduce import (  # noqa: F401
-    makeSegSize, buildSegmentSpectra, relabelSegments, seg_sizes,
+    makeSegSize, buildSegmentSpectra, relabelSegments,
+    makeSegmentLocations, SegmentLocations, seg_sizes,
     seg_spectral_sums, seg_spectral_sums_planes,
     seg_sizes_and_spectral_sums_planes, band_planes, image_tensor)
 from .ops.elim_single import (  # noqa: F401
@@ -258,3 +259,185 @@ def autoMaxSpectralDiff(km, maxSpectralDiff, distPcntile):
         maxSpectralDiff = 10 * clusterDist.max()
 
     return maxSpectralDiff
+
+
+# ---------------------------------- reference kernel compat layer
+#
+# The in-memory engine above runs the whole pipeline device-resident, but
+# the reference also exposes its individual elimination kernels as public
+# API (reference: shepseg.py:618-736, 816-877, 1003-1123). These are
+# faithful host-side equivalents on numpy arrays, for callers that drove
+# the reference kernels directly. They preserve the reference's scan
+# order and tie-breaks exactly (sequential greedy semantics), so they
+# are per-call faithful but not device-accelerated — the public
+# eliminateSinglePixels / eliminateSmallSegments drivers are the fast
+# path.
+
+
+class RowColArray:
+    """
+    Fixed-capacity list of (row, col) pixel coordinates for one segment
+    (reference RowColArray jitclass: shepseg.py:816-877).
+    """
+
+    __slots__ = ('rowcols', 'idx')
+
+    def __init__(self, length):
+        self.rowcols = np.empty((int(length), 2), dtype=np.uint32)
+        self.idx = 0
+
+    def append(self, row, col):
+        self.rowcols[self.idx, 0] = row
+        self.rowcols[self.idx, 1] = col
+        self.idx += 1
+
+    def getSegmentIndices(self):
+        """(rows, cols) arrays, usable as a fancy index into the image."""
+        return (self.rowcols[:self.idx, 0], self.rowcols[:self.idx, 1])
+
+
+def makeSegmentLocationsDict(seg, segSize):
+    """
+    Reference-style dictionary of segment ID -> :class:`RowColArray`
+    holding each segment's pixel coordinates in row-major scan order
+    (reference: shepseg.py:880-915 — a numba typed Dict there). The
+    framework's own :func:`makeSegmentLocations` builds the CSR
+    equivalent; use this dict form with :func:`findMergeSegment` /
+    :func:`doMerge`, which mutate it.
+    """
+    seg = np.asarray(seg)
+    flat = seg.ravel()
+    order = np.argsort(flat, kind='stable')
+    sortedIds = flat[order]
+    w = seg.shape[1]
+    ids, startIdx = np.unique(sortedIds, return_index=True)
+    startIdx = np.append(startIdx, len(flat))
+    d = {}
+    for i, s in enumerate(ids.tolist()):
+        if s == SEGNULLVAL:
+            continue
+        sl = order[startIdx[i]:startIdx[i + 1]]
+        rca = RowColArray(len(sl))
+        rca.rowcols[:, 0] = sl // w
+        rca.rowcols[:, 1] = sl % w
+        rca.idx = len(sl)
+        d[s] = rca
+    return d
+
+
+def findNearestNeighbourPixel(img, seg, i, j, segSize, fourConnected):
+    """
+    The (row, col) of the spectrally-nearest 3x3 neighbour of pixel
+    (i, j) that belongs to a segment of size > 1, or (-1, -1)
+    (reference: shepseg.py:677-736 — same scan order and strict-<
+    tie-break).
+
+    Documented deviation (PARITY.md): distances are computed in
+    float64. The reference's numba kernel subtracts in the IMAGE's
+    dtype, so unsigned imagery wraps (uint8 0 - 255 -> 1) and can pick
+    a spectrally-distant neighbour; here the true distance is used.
+    Signed or float imagery is unaffected.
+    """
+    (nBands, nRows, nCols) = img.shape
+    minDsqr = -1.0
+    ii = jj = -1
+    centre = img[:, i, j].astype(np.float64)
+    for iii in range(max(i - 1, 0), min(i + 1, nRows - 1) + 1):
+        for jjj in range(max(j - 1, 0), min(j + 1, nCols - 1) + 1):
+            connected = (not fourConnected) or (iii == i) or (jjj == j)
+            if connected and segSize[seg[iii, jjj]] > 1:
+                dSqr = ((centre - img[:, iii, jjj]) ** 2).sum()
+                if minDsqr < 0 or dSqr < minDsqr:
+                    minDsqr = dSqr
+                    ii, jj = iii, jjj
+    return (ii, jj)
+
+
+def mergeSinglePixels(img, seg, segSize, segToElim, fourConnected):
+    """
+    One find-all-then-apply pass merging single-pixel segments into
+    their spectrally-nearest neighbour of size > 1; modifies seg and
+    segSize in place and returns the number eliminated
+    (reference: shepseg.py:618-674). The public
+    :func:`eliminateSinglePixels` driver runs the same pass structure
+    on-device.
+    """
+    numEliminated = 0
+    for (i, j) in np.argwhere(segSize[seg] == 1):  # row-major scan order
+        (ii, jj) = findNearestNeighbourPixel(img, seg, int(i), int(j),
+                                             segSize, fourConnected)
+        if ii >= 0 and jj >= 0:
+            segToElim[0, numEliminated] = i
+            segToElim[1, numEliminated] = j
+            segToElim[2, numEliminated] = seg[ii, jj]
+            numEliminated += 1
+    for k in range(numEliminated):
+        r = segToElim[0, k]
+        c = segToElim[1, k]
+        newSeg = segToElim[2, k]
+        oldSeg = seg[r, c]
+        seg[r, c] = newSeg
+        segSize[oldSeg] = 0
+        segSize[newSeg] += 1
+    return numEliminated
+
+
+def findMergeSegment(segId, segLoc, seg, segSize, spectSum,
+                     maxSpectralDiff, fourConnected):
+    """
+    The neighbouring segment the given segment should merge into: the
+    strictly-larger neighbour with the closest mean spectrum, SEGNULLVAL
+    if none within maxSpectralDiff (reference: shepseg.py:1003-1063 —
+    same pixel scan order and strict-< tie-break). ``segLoc`` is the
+    dict from :func:`makeSegmentLocationsDict`.
+    """
+    bestNbrSeg = SEGNULLVAL
+    bestDistSqr = 0.0
+    (nRows, nCols) = seg.shape
+    segRowcols = segLoc[segId].rowcols
+    numPix = len(segRowcols)
+    spect = spectSum[segId] / numPix
+    for k in range(numPix):
+        # python ints: uint32 pixel coords would wrap at the image edge
+        i = int(segRowcols[k, 0])
+        j = int(segRowcols[k, 1])
+        for ii in range(max(i - 1, 0), min(i + 2, nRows)):
+            for jj in range(max(j - 1, 0), min(j + 2, nCols)):
+                connected = (not fourConnected) or (ii == i) or (jj == j)
+                nbrSegId = seg[ii, jj]
+                if (connected and nbrSegId != segId and
+                        nbrSegId != SEGNULLVAL and
+                        segSize[nbrSegId] > segSize[segId]):
+                    nbrSpect = spectSum[nbrSegId] / segSize[nbrSegId]
+                    distSqr = ((spect - nbrSpect) ** 2).sum()
+                    if bestNbrSeg == SEGNULLVAL or distSqr < bestDistSqr:
+                        bestDistSqr = distSqr
+                        bestNbrSeg = nbrSegId
+    if bestDistSqr > maxSpectralDiff ** 2:
+        bestNbrSeg = SEGNULLVAL
+    return bestNbrSeg
+
+
+def doMerge(segId, nbrSegId, seg, segSize, segLoc, spectSum):
+    """
+    Merge segment segId into nbrSegId: rewrite its pixels, concatenate
+    the coordinate lists (neighbour's pixels first, as the reference
+    appends), add the spectral sums and sizes, zero out the merged-away
+    entry. Modifies everything in place
+    (reference: shepseg.py:1066-1123).
+    """
+    segRowcols = segLoc[segId].rowcols
+    numPix = len(segRowcols)
+    nbrRowcols = segLoc[nbrSegId].rowcols
+    nbrNumPix = len(nbrRowcols)
+    merged = RowColArray(numPix + nbrNumPix)
+    merged.rowcols[:nbrNumPix] = nbrRowcols
+    merged.rowcols[nbrNumPix:] = segRowcols
+    merged.idx = numPix + nbrNumPix
+    seg[segRowcols[:, 0], segRowcols[:, 1]] = nbrSegId
+    segLoc[nbrSegId] = merged
+    segLoc.pop(segId)
+    spectSum[nbrSegId] += spectSum[segId]
+    spectSum[segId] = 0
+    segSize[nbrSegId] += segSize[segId]
+    segSize[segId] = 0

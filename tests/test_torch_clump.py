@@ -74,7 +74,13 @@ def test_clump_id_offset():
 
 
 def test_clump_rejects_max_clump_size():
-    with pytest.raises(NotImplementedError):
-        clump.clump(np.ones((4, 4), np.uint32), 0, maxClumpSize=3,
-                    device="cpu")
+    """maxClumpSize is no longer rejected: it runs the host flood fill
+    with the reference's cap (parity with the JAX package is held in
+    test_torch_compat.py): the cap splits the one 16-pixel clump."""
+    got, nxt = clump.clump(np.ones((4, 4), np.uint32), 0, maxClumpSize=3,
+                           device="cpu")
+    want, want_nxt = oracle_clump(np.ones((4, 4), np.uint32), 0,
+                                  fourConnected=True)
+    assert want_nxt == 2 and nxt > want_nxt
+    assert got.dtype == np.uint32 and (got > 0).all()
 

@@ -1,5 +1,6 @@
 """The CUDA kernels and the port on the card, against their plain PyTorch
-versions and the CPU run. Each test skips where there is no CUDA device.
+versions and the CPU run, in memory and through the tiled driver. Each
+test skips where there is no CUDA device.
 
 This file imports no JAX and uses no conftest fixture, so it also runs on
 a machine that has only torch:
@@ -12,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from pyshepseg_tpu_torch import shepseg
+from pyshepseg_tpu_torch import shepseg, tiling
 from pyshepseg_tpu_torch.ops import clump, local_ccl, lut
 from torch_parity import (need_cuda, padded_clusters, random_clusters,
-                          voronoi_image)
+                          read_output, voronoi_image, write_raster)
 
 pytestmark = pytest.mark.cuda
 
@@ -112,3 +113,75 @@ def test_local_ccl_kernel_under_contention(block, pattern):
         want = local_ccl.local_ccl_blocks_reference(img_t, 0, four_connected,
                                                     block=block)
         assert torch.equal(got, want)
+
+
+def _tiled(tmp_path, name, km, device, **kw):
+    """A tiled run of the raster ``in.npseg`` in 4 x 3 tiles; returns
+    (result, (segment band, RAT histogram))."""
+    out = str(tmp_path / (name + ".npseg"))
+    res = tiling.doTiledShepherdSegmentation(
+        str(tmp_path / "in.npseg"), out, tileSize=128, overlapSize=32,
+        minSegmentSize=20, numClusters=12, kmeansObj=km, device=device,
+        **kw)
+    return res, read_output(out)
+
+
+def _tiled_case(tmp_path):
+    """Write a 300x340 3-band raster; returns k-means fitted on the CPU."""
+    img, _ = voronoi_image(np.random.default_rng(4), shape=(300, 340),
+                           ncentres=30)
+    write_raster(str(tmp_path / "in.npseg"), img)
+    return shepseg.fitSpectralClusters(img, 12, 100, None, True,
+                                       device="cpu")
+
+
+def test_tiled_on_card_matches_cpu(tmp_path):
+    need_cuda()
+    km = _tiled_case(tmp_path)
+    before = (local_ccl.local_ccl_blocks.launches, lut.lut_gather.launches)
+    got, (seg_g, hist_g) = _tiled(tmp_path, "card", km, "cuda")
+    assert local_ccl.local_ccl_blocks.launches >= before[0] + 12
+    assert lut.lut_gather.launches > before[1]
+    want, (seg_w, hist_w) = _tiled(tmp_path, "cpu", km, "cpu")
+    np.testing.assert_array_equal(seg_g, seg_w)
+    np.testing.assert_array_equal(hist_g, hist_w)
+    assert got.maxSegId == want.maxSegId
+    assert got.hasEmptySegments == want.hasEmptySegments
+
+
+def test_tiled_threads_on_card_match_serial(tmp_path):
+    need_cuda()
+    km = _tiled_case(tmp_path)
+    want, (seg_w, hist_w) = _tiled(tmp_path, "none", km, "cuda")
+    cfg = tiling.SegmentationConcurrencyConfig(
+        concurrencyType=tiling.CONC_THREADS, numWorkers=2,
+        workerDevices='all', tileCompletionTimeout=300)
+    got, (seg_g, hist_g) = _tiled(tmp_path, "threads", km, "cuda",
+                                  concurrencyCfg=cfg)
+    np.testing.assert_array_equal(seg_g, seg_w)
+    np.testing.assert_array_equal(hist_g, hist_w)
+    assert got.maxSegId == want.maxSegId
+
+
+def test_tiled_threads_with_tf32_on_match_serial(tmp_path):
+    """With the user's TF32 on, the worker threads' k-means products stay
+    full float32 (one thread leaving must not turn TF32 back on under
+    another), and the user's setting is back afterwards."""
+    need_cuda()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        km = _tiled_case(tmp_path)
+        want, (seg_w, hist_w) = _tiled(tmp_path, "none", km, "cuda")
+        torch.backends.cuda.matmul.allow_tf32 = True
+        cfg = tiling.SegmentationConcurrencyConfig(
+            concurrencyType=tiling.CONC_THREADS, numWorkers=4,
+            tileCompletionTimeout=300)
+        got, (seg_g, hist_g) = _tiled(tmp_path, "threads", km, "cuda",
+                                      concurrencyCfg=cfg)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    np.testing.assert_array_equal(seg_g, seg_w)
+    np.testing.assert_array_equal(hist_g, hist_w)
+    assert got.maxSegId == want.maxSegId

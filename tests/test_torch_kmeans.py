@@ -142,6 +142,41 @@ def test_fp32_products_restore_tf32_flag():
         torch.backends.cuda.matmul.allow_tf32 = saved
 
 
+def test_fp32_products_hold_across_overlapping_threads():
+    """Two threads inside at once (as CONC_THREADS workers are): the one
+    that leaves first must not turn TF32 back on under the other, and the
+    user's setting comes back only when both have left."""
+    import threading
+    saved = torch.backends.cuda.matmul.allow_tf32
+    a_in, b_in, a_out = (threading.Event() for _ in range(3))
+    seen = {}
+
+    def a():
+        with kmeans._fp32_matmul():
+            a_in.set()
+            b_in.wait(10)
+        a_out.set()
+
+    def b():
+        a_in.wait(10)
+        with kmeans._fp32_matmul():
+            b_in.set()
+            a_out.wait(10)
+            seen["b_after_a_left"] = torch.backends.cuda.matmul.allow_tf32
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        threads = [threading.Thread(target=f) for f in (a, b)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(20)
+        assert seen == {"b_after_a_left": False}
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def test_host_helpers_match_jax(rng):
     x = rng.integers(0, 1000, size=(500, 4)).astype(np.int32)
     np.testing.assert_array_equal(

@@ -53,6 +53,27 @@ def voronoi_image(rng, shape=(80, 80), ncentres=12, nbands=3, noise=2):
     return img.astype(np.uint16), true_seg
 
 
+def write_raster(path, img):
+    """Write a (nBands, H, W) image as a raster through the port's
+    raster driver (no JAX, so usable where JAX is absent)."""
+    from pyshepseg_tpu_torch import io as rio
+    nbands, h, w = img.shape
+    ds = rio.create(path, w, h, nbands, img.dtype)
+    for b in range(nbands):
+        ds.GetRasterBand(b + 1).WriteArray(img[b])
+    ds.FlushCache()
+
+
+def read_output(path):
+    """(segment band, RAT histogram column as int64) of a tiled output
+    raster."""
+    from pyshepseg_tpu_torch import io as rio
+    band = rio.open(path).GetRasterBand(1)
+    rat = band.GetDefaultRAT()
+    hist = rat.ReadAsArray(rat.GetColOfUsage(rio.GFU_PixelCount))
+    return band.ReadAsArray(), np.asarray(hist, dtype=np.int64)
+
+
 def to_np(t):
     """A tensor (or tuple of tensors) as numpy."""
     if isinstance(t, tuple):
