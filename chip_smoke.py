@@ -2,13 +2,16 @@
 """
 Smoke run of pyshepseg_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels from pyshepseg_tpu_torch/csrc/, holds each against its plain
-PyTorch version on the card, drives doShepherdSegmentation end to end at
-bench config1 (1024x1024) and at the default tile size (4096x4096), then
-drives the tiled driver doTiledShepherdSegmentation over an 8000x8000
-scene in 9 tiles of 4096^2 (serial, two worker threads and the 3-phase
-API, equal bit for bit), serially over a denser 8000x8000 scene whose
-tiles exceed K2's table, and over a 1536x1536 scene on the card and on
-the CPU (equal bit for bit).
+PyTorch version on the card (K2 on both of its routes, with a sweep of
+their times by reuse), drives doShepherdSegmentation end to end at bench
+config1 (1024x1024) and at the default tile size (4096x4096), then drives
+the tiled driver doTiledShepherdSegmentation over an 8000x8000 scene in 9
+tiles of 4096^2 (serial, two worker threads and the 3-phase API, equal
+bit for bit), serially over a denser 8000x8000 scene (K2 on every tile),
+and over a 1536x1536 scene on the card and on the CPU (equal bit for
+bit); last, doShepherdSegmentation on a noisy 2048x2048 image whose table
+is above K2's staged route, on the card and on the CPU (equal bit for
+bit).
 
     python3 chip_smoke.py
 
@@ -57,10 +60,10 @@ def phase(name):
     print("== %s" % name, flush=True)
 
 
-def make_image(h, w, nbands, ncells=400, seed=7, device="cuda"):
+def make_image(h, w, nbands, ncells=400, seed=7, device="cuda", noise=8.0):
     """Synthetic Landsat-like tile: Voronoi patches + noise, uint16 — the
-    same draws and float32 arithmetic as bench.py's make_image, with the
-    nearest-centre search done on ``device``."""
+    same draws and float32 arithmetic as bench.py's make_image (at its
+    noise of 8.0), with the nearest-centre search done on ``device``."""
     rng = np.random.default_rng(seed)
     centres = rng.uniform(0, [h, w], size=(ncells, 2)).astype(np.float32)
     yy = torch.arange(h, dtype=torch.float32, device=device)[:, None, None]
@@ -78,7 +81,7 @@ def make_image(h, w, nbands, ncells=400, seed=7, device="cuda"):
     cells = cells.cpu().numpy()
     palette = rng.integers(100, 4000, size=(ncells, nbands))
     img = palette[cells].transpose(2, 0, 1)
-    img = img + rng.normal(0, 8.0, img.shape)
+    img = img + rng.normal(0, noise, img.shape)
     return np.clip(img, 0, 65535).astype(np.uint16)
 
 
@@ -181,12 +184,20 @@ def max_abs_err(got, want):
 def reset_counts():
     local_ccl.local_ccl_blocks.launches = 0
     lut.lut_gather.launches = 0
+    lut.lut_gather.direct_launches = 0
+    lut.lut_gather.staged_launches = 0
     to_host.syncs = 0
 
 
 def read_counts():
     return {"local_ccl": local_ccl.local_ccl_blocks.launches,
             "lut_gather": lut.lut_gather.launches}
+
+
+def read_routes():
+    """K2's launches per route since the last reset_counts."""
+    return {"direct": lut.lut_gather.direct_launches,
+            "staged": lut.lut_gather.staged_launches}
 
 
 def phase_device():
@@ -254,27 +265,147 @@ def phase_k1(dev, rng):
                   "(%d clumps)" % (shape, (by, bx), four, n_k))
 
 
+# K2 rows of phase 4: (what, index shape, table entries, index dtype,
+# table dtype, view offset), at the types the path passes. The relabel's
+# table is int32 (the segment image's type), the graph passes' is the int64
+# remap; 24000-24308 is a 4096^2 tile's capacity at 4096 cells, 56000-60000
+# one of phase 7b's tiles (60000 is above the staged route's int32 table).
+I32, I64 = torch.int32, torch.int64
+K2_ROWS = [
+    ("relabel", (1024, 1024), 4096, I32, I32, 0),
+    ("relabel", (777, 1031), 32768, I32, I32, 0),
+    ("graph pass", (26000,), 13000, I32, I64, 0),
+    ("graph pass", (123457,), 32768, I32, I64, 0),
+    ("graph pass, 4096^2 tile", (72000,), 24000, I32, I64, 0),
+    ("relabel", (4096, 4096), 13000, I32, I32, 0),
+    ("remap composition, 4096^2 tile", (24308,), 24308, I64, I64, 0),
+    ("graph pass, phase 7b tile", (165000,), 56000, I32, I64, 0),
+    ("relabel, 4096^2 tile", (4096, 4096), 24308, I32, I32, 0),
+    ("relabel, phase 7b tile", (4096, 4096), 56000, I32, I32, 0),
+    ("relabel, phase 7b tile", (4096, 4096), 60000, I32, I32, 0),
+    ("misaligned views", (1024 * 1024,), 4096, I32, I32, 1),
+    ("misaligned views", (72000,), 24000, I32, I64, 1),
+]
+# ops that would cast or mask around K2
+CAST_OPS = {"aten::to", "aten::_to_copy", "aten::copy_", "aten::bitwise_and",
+            "aten::__and__"}
+
+
+def k2_inputs(dev, rng, shape, c, idx_dtype, table_dtype, offset=0):
+    """Indices in [0, c) and a table whose values use the type's bits,
+    both sliced at ``offset`` (offset 1 makes views that are not 16-byte
+    aligned)."""
+    hi = 2 ** 31 - 1 if table_dtype == torch.int32 else 2 ** 62
+    n = int(np.prod(shape))
+    table = torch.from_numpy(rng.integers(0, hi, size=c + offset)).to(
+        dev, table_dtype)[offset:]
+    idx = torch.from_numpy(rng.integers(0, c, size=n + offset)).to(
+        dev, idx_dtype)[offset:].view(shape)
+    return idx, table
+
+
+def kernels_of(fn):
+    """(device kernels, aten ops) that one call of ``fn`` runs, from
+    torch.profiler; the kernel list is empty if the profiler saw no
+    device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.events()
+    kernels = [e.name for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops = [e.name for e in events if e.name.startswith("aten::")]
+    return kernels, ops
+
+
+def check_no_casts(fn, what):
+    """The wrapper launches K2 and nothing else: one device kernel (when
+    the profiler traces the device) and no cast or mask op."""
+    kernels, ops = kernels_of(fn)
+    casts = sorted(set(ops) & CAST_OPS)
+    if casts or (kernels and len(kernels) != 1):
+        raise AssertionError("K2 %s: kernels %s, cast ops %s"
+                             % (what, kernels, casts))
+    print("K2 %s through the wrapper: device kernels %s, aten ops %s"
+          % (what, kernels or "not traced", sorted(set(ops))))
+
+
 def phase_k2(dev, rng):
+    """Every row on both routes (where the table fits shared memory) and
+    on the route the wrapper picks, equal to the plain version; the
+    picked route timed against the plain version at the same types.
+    Returns the graph-pass record for the kernels line."""
     phase("4 K2 lut_gather vs plain version (tolerance: exact)")
-    # (72000, 24000) is a graph-pass gather of a 4096^2 tile: 2E indices
-    # from a table of capacity entries
-    for n_idx, c, two_d in [((1024, 1024), 4096, True),
-                            ((777, 1031), 32768, True),
-                            (26000, 13000, False), (123457, 32768, False),
-                            (72000, 24000, False),
-                            ((4096, 4096), 13000, True)]:
+    limit = lut.smem_limit(dev)
+    record = None
+    for what, shape, c, idx_dtype, table_dtype, offset in K2_ROWS:
+        # int32 indices into an int64 table of ids that use all 32 bits
+        idx = torch.from_numpy(rng.integers(0, c, size=shape).astype(
+            np.int32)).to(dev)
         table = torch.from_numpy(rng.integers(
             0, 2 ** 32, size=c, dtype=np.int64)).to(dev)
-        idx = torch.from_numpy(rng.integers(
-            0, c, size=n_idx).astype(np.int32)).to(dev)
-        fn = lut.lut_gather if two_d else lut.lut_gather_flat
-        check_equal(fn(idx, table), lut.lut_gather_reference(idx, table),
-                    "K2 %s from %d" % (n_idx, c))
-        t32 = table.to(torch.int32)
-        k_ms = cuda_ms(lambda: fn(idx, t32))
-        p_ms = cuda_ms(lambda: lut.lut_gather_reference(idx, t32))
-        print("K2 %s from %d entries: equal; kernel %.4f ms, plain %.4f ms"
-              % (n_idx, c, k_ms, p_ms))
+        check_equal(lut.lut_gather(idx, table),
+                    lut.lut_gather_reference(idx, table),
+                    "K2 %s from %d, uint32 ids" % (shape, c))
+        idx, table = k2_inputs(dev, rng, shape, c, idx_dtype, table_dtype,
+                               offset)
+        want = lut.lut_gather_reference(idx, table)
+        routes = ["direct"]
+        if lut.STAGED_PAD + c * table.element_size() <= limit:
+            routes.append("staged")
+        for route in routes:
+            check_equal(lut.lut_gather(idx, table, route=route), want,
+                        "K2 %s %s from %d (%s)" % (what, shape, c, route))
+        route = lut.lut_route(idx.numel(), c, table_dtype, limit)
+        p_ms = cuda_ms(lambda: lut.lut_gather_reference(idx, table))
+        k_ms = cuda_ms(lambda: lut.lut_gather(idx, table))
+        others = ", ".join(
+            "%s %.4f ms" % (r, cuda_ms(
+                lambda: lut.lut_gather(idx, table, route=r)))
+            for r in routes if r != route)
+        print("K2 %s, %s %s from %d %s%s: equal on %s; route %s, kernel "
+              "%.4f ms, plain %.4f ms%s"
+              % (what, shape, str(idx_dtype)[6:], c, str(table_dtype)[6:],
+                 ", offset %d" % offset if offset else "",
+                 " and ".join(routes), route, k_ms, p_ms,
+                 " (%s)" % others if others else ""))
+        if what == "graph pass, 4096^2 tile":
+            record = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max_abs_err(
+                lut.lut_gather(idx, table), want))
+        if what in ("graph pass, 4096^2 tile",
+                    "remap composition, 4096^2 tile"):
+            check_no_casts(lambda: lut.lut_gather(idx, table), what)
+    return record
+
+
+def phase_k2_sweep(dev, rng):
+    """Both routes at reuse n / c from 1 to 4096 (at most 2^24 indices):
+    the numbers that set lut.STAGED_MIN_REUSE."""
+    phase("4b K2 route sweep: kernel ms direct / staged by reuse n/c")
+    for c, idx_dtype, table_dtype in [
+            (434, I32, I32), (4096, I32, I32), (24308, I32, I32),
+            (32768, I32, I32), (40000, I32, I32), (48000, I32, I32),
+            (56000, I32, I32), (24308, I32, I64), (24308, I64, I64)]:
+        cells, even = [], None
+        for reuse in (1, 4, 16, 32, 64, 256, 1024, 4096):
+            if reuse * c > 2 ** 24:
+                break
+            idx, table = k2_inputs(dev, rng, (reuse * c,), c, idx_dtype,
+                                   table_dtype)
+            d_ms = cuda_ms(lambda: lut.lut_gather(idx, table, route="direct"))
+            s_ms = cuda_ms(lambda: lut.lut_gather(idx, table, route="staged"))
+            cells.append("%d: %.4f / %.4f" % (reuse, d_ms, s_ms))
+            if even is None and s_ms <= d_ms:
+                even = reuse
+        print("c %d (%d KB), %s from %s: %s; staged first at or under "
+              "direct at reuse %s (staged in use from reuse %d and %d KB)"
+              % (c, c * table.element_size() // 1024, str(idx_dtype)[6:],
+                 str(table_dtype)[6:], " | ".join(cells), even,
+                 lut.STAGED_MIN_REUSE, lut.STAGED_MIN_BYTES // 1024))
 
 
 def phase_config1(dev):
@@ -290,7 +421,7 @@ def phase_config1(dev):
                                          **CONFIG1)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    launches, syncs = read_counts(), to_host.syncs
+    launches, syncs, routes = read_counts(), to_host.syncs, read_routes()
     res_cpu = shepseg.doShepherdSegmentation(img, kmeansObj=km,
                                              device="cpu", **CONFIG1)
     if not np.array_equal(res.segimg, res_cpu.segimg):
@@ -301,10 +432,11 @@ def phase_config1(dev):
             raise AssertionError("config1: %s never launched" % name)
     nseg = int(res.segimg.max())
     print("config1: segimg cuda == cpu; %d segments, %d clumps, %d sweeps, "
-          "%d graph passes, %d host syncs, %.3f s (first call), launches %s"
+          "%d graph passes, %d host syncs, %.3f s (first call), launches "
+          "%s, K2 by route %s"
           % (nseg, nseg + res.singlePixelsEliminated +
              res.smallSegmentsEliminated, res.clumpSweeps, res.elimPasses,
-             syncs, wall, launches))
+             syncs, wall, launches, routes))
 
     # each kernel's time at its shape on this path, beside the plain one
     clusters = shepseg.assign_clusters(
@@ -327,6 +459,7 @@ def phase_config1(dev):
     k2_ref = lut.lut_gather_reference(seg_t, table)
     check_equal(k2, k2_ref, "K2 at config1 relabel")
     records["lut_gather"] = dict(
+        shape="final relabel, 1024^2 int32 from %d int32" % (nseg + 1),
         ms=cuda_ms(lambda: lut.lut_gather(seg_t, table)),
         plain_ms=cuda_ms(lambda: lut.lut_gather_reference(seg_t, table)),
         max_abs_err=max_abs_err(k2, k2_ref))
@@ -350,13 +483,10 @@ def phase_tile(dev):
         torch.cuda.synchronize()
         walls.append(time.time() - t0)
     peak = torch.cuda.max_memory_allocated()
-    launches, syncs = read_counts(), to_host.syncs
+    launches, syncs, routes = read_counts(), to_host.syncs, read_routes()
     seg = res.segimg
     nseg = int(seg.max())
     nclumps = nseg + res.singlePixelsEliminated + res.smallSegmentsEliminated
-    if nclumps + 1 > lut.LUT_MAX_TABLE:
-        raise AssertionError("4096^2: capacity %d is above K2's table limit"
-                             % (nclumps + 1))
     counts = np.bincount(seg.ravel(), minlength=nseg + 1)
     if (counts[1:] == 0).any() or counts[0] != 0:
         raise AssertionError("4096^2: labels are not contiguous 1..max")
@@ -369,10 +499,10 @@ def phase_tile(dev):
             raise AssertionError("4096^2: %s never launched" % name)
     print("4096^2: %d clumps (capacity %d), %d segments, %d sweeps, "
           "%d graph passes, %d host syncs, first %.3f s, second %.3f s, "
-          "peak %.1f MiB, launches %s; labels contiguous, every segment "
-          "one component"
+          "peak %.1f MiB, launches %s, K2 by route %s; labels contiguous, "
+          "every segment one component"
           % (nclumps, nclumps + 1, nseg, res.clumpSweeps, res.elimPasses,
-             syncs, walls[0], walls[1], peak / 2 ** 20, launches))
+             syncs, walls[0], walls[1], peak / 2 ** 20, launches, routes))
 
 
 def check_mosaic(seg, hist, maxSegId, hasEmpty, npix, what):
@@ -399,9 +529,9 @@ def report_run(name, wall, npix, timings, peak, ntiles, launches):
     ivals = " ".join("%s %.3f" % (k, totals[k]['total'])
                      for k in INTERVALS if k in totals)
     print("%s: %d tiles, wall %.3f s, %.2f Mpix/s, peak %.1f MiB, "
-          "launches %s | Timers (s): %s"
+          "launches %s, K2 by route %s | Timers (s): %s"
           % (name, ntiles, wall, npix / 1e6 / wall, peak / 2 ** 20,
-             launches, ivals))
+             launches, read_routes(), ivals))
 
 
 def scene_file(tmp, h, w, ncells):
@@ -451,9 +581,8 @@ def phase_tiled(tmp):
     phase("7 tiled, 8000x8000 scene, default tile")
     h = w = 8000
     # 4000 cells: with k-means fitted to the whole scene, a 4096^2 tile
-    # of this scene has 16-27 K clumps, so every tile stays under K2's
-    # 32768-entry table and K2 runs on each (15000 cells give 51-60 K,
-    # see phase_tiled_dense)
+    # of this scene has 16-27 K clumps (15000 cells give 51-60 K, see
+    # phase_tiled_dense)
     inpath, km = scene_file(tmp, h, w, 4000)
     runs = {}
     for name, cfg in [
@@ -519,24 +648,41 @@ def phase_tiled(tmp):
 def phase_tiled_dense(tmp):
     """The 8000^2 scene at the density of phase 6's tile (15000 cells),
     serial with the scene cache: with k-means fitted to the whole scene
-    most tiles then exceed K2's table, so the graph passes gather by
-    plain indexing. Reports its own launch counts and Timers."""
+    its tiles hold 51-60 K clumps, above the JAX kernel's table, and K2
+    must launch on every tile. Reports its own launch counts and Timers."""
     phase("7b tiled, 8000x8000 scene at 15000 cells, serial")
     h = w = 8000
     inpath, km = scene_file(tmp, h, w, 15000)
     out = os.path.join(tmp, "dense.npseg")
-    res, launches = tiled_run(
-        "dense serial", inpath, out, km,
-        tiling.SegmentationConcurrencyConfig(deviceSceneCache=True), h * w)
+    per_tile = []
+    segment = shepseg.doShepherdSegmentation
+
+    def counted(*args, **kwargs):
+        before = lut.lut_gather.launches
+        result = segment(*args, **kwargs)
+        per_tile.append(lut.lut_gather.launches - before)
+        return result
+
+    shepseg.doShepherdSegmentation = counted
+    try:
+        res, launches = tiled_run(
+            "dense serial", inpath, out, km,
+            tiling.SegmentationConcurrencyConfig(deviceSceneCache=True),
+            h * w)
+    finally:
+        shepseg.doShepherdSegmentation = segment
     seg, hist = read_seg(out)
     check_mosaic(seg, hist, res.maxSegId, res.hasEmptySegments, h * w,
                  "tiled dense")
     if launches["local_ccl"] < 9:
         raise AssertionError("tiled dense: K1 launched %d times"
                              % launches["local_ccl"])
+    if len(per_tile) != 9 or min(per_tile) < 1:
+        raise AssertionError("tiled dense: K2 launches per tile %s"
+                             % per_tile)
     print("tiled 8000^2 at 15000 cells: %d segments, no empty ids, "
-          "histogram sums to %d, launches %s"
-          % (res.maxSegId, hist.sum(), launches))
+          "histogram sums to %d, launches %s, K2 launches per tile %s"
+          % (res.maxSegId, hist.sum(), launches, per_tile))
 
 
 def phase_tiled_cpu(tmp):
@@ -571,13 +717,51 @@ def phase_tiled_cpu(tmp):
           "maxSegId %d)" % max_g)
 
 
+def phase_dense_memory(dev):
+    """doShepherdSegmentation on a noisy 2048^2 image of many cells, whose
+    capacity is above the staged route's int32 table (and the JAX
+    kernel's): every K2 gather takes the direct route. Card == CPU."""
+    phase("8b in memory, 2048x2048 above K2's staged table, card vs CPU")
+    img = make_image(2048, 2048, 4, ncells=12000, noise=40.0, device=dev)
+    km = shepseg.fitSpectralClusters(img, 60, 1, None, True, device=dev)
+    reset_counts()
+    t0 = time.time()
+    res = shepseg.doShepherdSegmentation(img, kmeansObj=km, device="cuda",
+                                         **CONFIG1)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, routes = read_counts(), read_routes()
+    t0 = time.time()
+    res_cpu = shepseg.doShepherdSegmentation(img, kmeansObj=km,
+                                             device="cpu", **CONFIG1)
+    wall_cpu = time.time() - t0
+    nseg = int(res.segimg.max())
+    capacity = (nseg + res.singlePixelsEliminated +
+                res.smallSegmentsEliminated + 1)
+    if lut.lut_route(img[0].size, capacity, torch.int32,
+                     lut.smem_limit(dev)) != "direct":
+        raise AssertionError("2048^2: capacity %d fits the staged route"
+                             % capacity)
+    if routes["direct"] == 0 or routes["staged"] != 0:
+        raise AssertionError("2048^2: K2 by route %s" % routes)
+    if not np.array_equal(res.segimg, res_cpu.segimg):
+        raise AssertionError("2048^2: cuda and cpu segimg differ at %d "
+                             "pixels" % (res.segimg != res_cpu.segimg).sum())
+    print("2048^2 noisy: segimg cuda == cpu bit for bit; capacity %d, %d "
+          "segments, %d graph passes, card %.3f s (first call), CPU %.3f s, "
+          "launches %s, K2 by route %s"
+          % (capacity, nseg, res.elimPasses, wall, wall_cpu, launches,
+             routes))
+
+
 def main():
     kind, smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
     rng = np.random.default_rng(0)
     phase_k1(dev, rng)
-    phase_k2(dev, rng)
+    graph_pass = phase_k2(dev, rng)
+    phase_k2_sweep(dev, rng)
     config1_launches, records = phase_config1(dev)
     phase_tile(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -585,10 +769,15 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         phase_tiled_dense(tmp)
         phase_tiled_cpu(tmp)
+    phase_dense_memory(dev)
     print("config1 launches (in-memory path):", config1_launches)
+    graph_pass["shape"] = "graph pass, 72000 int32 from 24000 int64"
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], launches=launches[name],
-                    **records[name]) for name in ("local_ccl", "lut_gather")]
+                    **rec)
+               for name, rec in [("local_ccl", records["local_ccl"]),
+                                 ("lut_gather", records["lut_gather"]),
+                                 ("lut_gather", graph_pass)]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build",
                          "pyshepseg_tpu_torch")
 LIB_PATH = os.path.join(BUILD_DIR, "libpyshepseg_tpu_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 _lock = threading.Lock()
@@ -59,22 +59,43 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _run(procs):
+    """Wait for every (command, Popen) pair; raise on the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = "nvcc failed (%d): %s\n%s" % (
+                proc.returncode, " ".join(cmd), err)
+    if failed:
+        raise RuntimeError(failed)
+
+
 def build(force=False):
     """Compile ``csrc/*.cu`` into LIB_PATH if it is missing, older than a
-    source, or ``force``. Returns the seconds spent (0.0 when up to date)."""
+    source, or ``force``: one nvcc per source, all started together, then
+    one link. Returns the seconds spent (0.0 when up to date)."""
     srcs = _sources()
     deps = srcs + glob.glob(os.path.join(CSRC, "*.cuh"))
     if (not force and os.path.exists(LIB_PATH) and
             os.path.getmtime(LIB_PATH) >= max(map(os.path.getmtime, deps))):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIB_PATH + ".tmp%d" % os.getpid()
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + srcs
+    tag = ".tmp%d" % os.getpid()
+    objs = [os.path.join(BUILD_DIR, os.path.basename(src) + tag + ".o")
+            for src in srcs]
     t0 = time.time()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("nvcc failed (%d): %s\n%s" % (
-            proc.returncode, " ".join(cmd), proc.stderr))
+    compiles = []
+    for src, obj in zip(srcs, objs):
+        cmd = [_nvcc()] + NVCC_FLAGS + ["-c", "-o", obj, src]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stderr=subprocess.PIPE, text=True)))
+    _run(compiles)
+    tmp = LIB_PATH + tag
+    cmd = [_nvcc(), "-shared", "-o", tmp] + objs
+    _run([(cmd, subprocess.Popen(cmd, stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, LIB_PATH)
     return time.time() - t0
 
@@ -91,7 +112,10 @@ def lib():
             handle.local_ccl_launch.argtypes = [
                 vp, vp, i32, i32, i32, i32, i32, i32, vp]
             handle.lut_gather_launch.restype = i32
-            handle.lut_gather_launch.argtypes = [vp, vp, vp, i64, i32, vp]
+            handle.lut_gather_launch.argtypes = [
+                vp, i32, vp, i32, vp, i64, i64, i32, i32, vp]
+            handle.lut_gather_smem_limit.restype = i32
+            handle.lut_gather_smem_limit.argtypes = [i32]
             _lib = handle
     return _lib
 

@@ -19,8 +19,13 @@ id remap (orig id -> current id). Hence:
 3. rewrite the segment image with one gather at the end, fused with the
    contiguous relabel.
 
-The id-remap gathers go through kernel K2 (ops/lut.py) on the card when
-the table is small enough, as in the JAX package. Ties between
+The id-remap gathers go through kernel K2 (ops/lut.py) on the card at
+every capacity, with their index and table types as they are: the graph
+passes (reuse n / c of ~3 and 1) on its direct route, which reads the
+table through the caches; the final relabel (reuse in the hundreds) on
+its staged route, which copies the table into shared memory, when the
+table is too large for the direct route's L1 and still fits shared memory
+(lut.lut_route), else on the direct route too. Ties between
 equal-distance neighbours go to the smallest neighbour id (the JAX
 package's documented deviation from the reference).
 """
@@ -172,7 +177,7 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
              else remap_init.long())
     size = seg_size.long()
     sums = spect_sum.T.contiguous()
-    # int32: K2's index type; ids < capacity < 2^31
+    # int32 halves the index bytes K2 streams each pass; ids < capacity < 2^31
     ids2 = torch.cat([ea, eb]).to(torch.int32)
 
     num_elim = 0

@@ -57,13 +57,75 @@ def test_lut_kernel_matches_plain(shape, c):
     assert lut.lut_gather.launches == before + 1
 
 
-def test_lut_kernel_rejects_oversize_table():
+def _lut_case(rng, n, c, idx_dtype, table_dtype, offset=0):
+    """Indices and a table on the card, both sliced at ``offset`` (a view
+    whose data pointer is not 16-byte aligned when offset > 0); table
+    values use all 32 or 63 bits of the type."""
+    hi = 2 ** 31 - 1 if table_dtype == torch.int32 else 2 ** 62
+    table = torch.from_numpy(rng.integers(0, hi, size=c + offset)).to(
+        "cuda", table_dtype)[offset:]
+    idx = torch.from_numpy(rng.integers(0, c, size=n + offset)).to(
+        "cuda", idx_dtype)[offset:]
+    return idx, table
+
+
+@pytest.mark.parametrize("route", ["direct", "staged"])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("table_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("n,c", [(1, 1), (13, 7), (72000, 24000),
+                                 (300001, 4096)])
+def test_lut_kernel_routes_match_plain(route, idx_dtype, table_dtype, n, c):
+    need_cuda()
+    idx, table = _lut_case(np.random.default_rng(3), n, c, idx_dtype,
+                           table_dtype)
+    before = (lut.lut_gather.launches,
+              getattr(lut.lut_gather, route + "_launches"))
+    got = lut.lut_gather(idx, table, route=route)
+    assert got.dtype == table_dtype
+    assert torch.equal(got, lut.lut_gather_reference(idx, table))
+    assert (lut.lut_gather.launches,
+            getattr(lut.lut_gather, route + "_launches")) == (
+                before[0] + 1, before[1] + 1)
+
+
+def test_lut_kernel_takes_a_large_table():
+    """100 000 entries: above the JAX kernel's table and above shared
+    memory, so the direct route serves it at any reuse."""
+    need_cuda()
+    idx, table = _lut_case(np.random.default_rng(4), 2 ** 22, 100000,
+                           torch.int32, torch.int64)
+    before = lut.lut_gather.direct_launches
+    assert torch.equal(lut.lut_gather(idx, table),
+                       lut.lut_gather_reference(idx, table))
+    assert lut.lut_gather.direct_launches == before + 1
+
+
+@pytest.mark.parametrize("route", ["direct", "staged"])
+@pytest.mark.parametrize("table_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_lut_kernel_misaligned_views(route, table_dtype, offset):
+    need_cuda()
+    for idx_dtype in (torch.int32, torch.int64):
+        idx, table = _lut_case(np.random.default_rng(offset), 100003, 5001,
+                               idx_dtype, table_dtype, offset=offset)
+        assert torch.equal(lut.lut_gather(idx, table, route=route),
+                           lut.lut_gather_reference(idx, table))
+
+
+def test_lut_kernel_rejects_float_table():
     need_cuda()
     idx = torch.zeros(8, dtype=torch.int32, device="cuda")
-    table = torch.zeros(lut.LUT_MAX_TABLE + 1, dtype=torch.int32,
+    with pytest.raises(ValueError):
+        lut.lut_gather(idx, torch.zeros(16, device="cuda"))
+
+
+def test_lut_kernel_rejects_staging_an_oversize_table():
+    need_cuda()
+    idx = torch.zeros(8, dtype=torch.int32, device="cuda")
+    table = torch.zeros(lut.smem_limit("cuda") // 4, dtype=torch.int32,
                         device="cuda")
     with pytest.raises(ValueError):
-        lut.lut_gather(idx, table)
+        lut.lut_gather(idx, table, route="staged")
 
 
 @pytest.mark.parametrize("four_connected", [True, False])
