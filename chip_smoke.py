@@ -2,9 +2,12 @@
 """
 Smoke run of pyshepseg_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels from pyshepseg_tpu_torch/csrc/, holds each against its plain
-PyTorch version on the card (K2 on both of its routes, with a sweep of
-their times by reuse), drives doShepherdSegmentation end to end at bench
-config1 (1024x1024) and at the default tile size (4096x4096), then drives
+PyTorch version on the card (K1 at every block shape it takes, timed by
+block shape beside its bound; K2 on both of its routes, beside
+torch.index_select, with a sweep of their times by reuse), drives
+doShepherdSegmentation end to end at bench config1 (1024x1024) and at the
+default tile size (4096x4096), each with an A/B of the clump stage's
+two-level merge against the global sweeps (labels equal), then drives
 the tiled driver doTiledShepherdSegmentation over an 8000x8000 scene in 9
 tiles of 4096^2 (serial, two worker threads and the 3-phase API, equal
 bit for bit), serially over a denser 8000x8000 scene (K2 on every tile),
@@ -20,10 +23,11 @@ on failure, so the script exits non-zero and prints no result line; it also fail
 the package is missing. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 before it come the card's name and power limit as nvidia-smi reports them
-and the per-kernel JSON record, whose launch counts are those of the
-serial tiled run.
+and the per-kernel JSON record (times, bound, plain version and library
+call), whose launch counts are those of the serial tiled run.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -50,6 +54,8 @@ TILED = dict(numClusters=60, minSegmentSize=50, maxSpectralDiff='auto',
              fourConnected=True)
 INTERVALS = ("reading", "segmentation", "stitchwait", "stitchtiles",
              "stitchfinalize", "walltime")
+# the H100's device-memory rate (bytes/s), for each kernel's bound
+HBM_BYTES_PER_S = 3.35e12
 SOURCES = {"local_ccl": ("pyshepseg_tpu_torch/csrc/local_ccl.cu",
                          "pyshepseg_tpu/ops/pallas_ccl.py:92"),
            "lut_gather": ("pyshepseg_tpu_torch/csrc/lut_gather.cu",
@@ -186,6 +192,7 @@ def reset_counts():
     lut.lut_gather.launches = 0
     lut.lut_gather.direct_launches = 0
     lut.lut_gather.staged_launches = 0
+    clump.clump_labels.fallbacks = 0
     to_host.syncs = 0
 
 
@@ -224,19 +231,57 @@ def phase_build():
         "not built, numpy fallback"))
 
 
+# block shapes K1 is timed at (phase 3); the first is the default
+K1_BLOCKS = [(128, 128), (64, 64), (64, 128), (128, 256), (256, 256)]
+
+
+def bound_ms(nbytes):
+    """The least time the card could take to move ``nbytes`` (ms)."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def print_occupancy(block):
+    for four in (True, False):
+        threads, smem, per_sm = local_ccl.occupancy(block, four)
+        print("K1 block %s four=%s: %d threads, %d bytes of shared memory "
+              "a block, %d blocks resident per SM"
+              % (block, four, threads, smem, per_sm))
+
+
+def time_k1(img_t, block, four, what):
+    """K1 against its plain version at one shape: kernel ms, bound and
+    share of the bound, plain ms."""
+    k_ms = cuda_ms(lambda: local_ccl.local_ccl_blocks(img_t, 0, four,
+                                                      block=block))
+    p_ms = cuda_ms(lambda: local_ccl.local_ccl_blocks_reference(
+        img_t, 0, four, block=block), reps=3, warmup=1)
+    b_ms = bound_ms(8 * img_t.numel())
+    print("K1 %s block %s four=%s: kernel %.4f ms, bound %.4f ms (%.1f%% "
+          "of bound), plain %.2f ms"
+          % (what, block, four, k_ms, b_ms, 100 * b_ms / k_ms, p_ms))
+    return k_ms, p_ms, b_ms
+
+
 def phase_k1(dev, rng):
     phase("3 K1 local_ccl vs plain version (tolerance: exact)")
-    # (4096, 4096) is the cluster image of one default tile, the shape K1
-    # runs at on the tiled path
+    print("default block %s" % (local_ccl.block_shape_for(4096, 4096)[0],))
+    for block in K1_BLOCKS + [(40, 72)]:
+        print_occupancy(block)
+    # every block shape K1 takes on the path (BLOCK, and one block of a
+    # small image rounded to 8), 256 x 256, non-square and non-power-of-two
+    # blocks, ragged images padded to whole blocks; (1024, 1024) and
+    # (4096, 4096) are the cluster images of config1 and of one tile
     for shape, block in [((200, 328), 32), ((1000, 1000), None),
                          ((517, 771), 32), ((256, 384), None),
-                         ((4096, 4096), None)]:
+                         ((100, 60), None), ((517, 771), (40, 72)),
+                         ((300, 700), (128, 256)), ((600, 520), (256, 256)),
+                         ((1024, 1024), None), ((4096, 4096), None)]:
         for four in (True, False):
             raw = random_clusters(rng, shape)
             if block is None:
-                (by, bx), _ = local_ccl.block_shape_for(*shape)
+                by, bx = local_ccl.block_shape_for(*shape)[0]
             else:
-                by = bx = block
+                by, bx = (block, block) if isinstance(block, int) else block
             hp, wp = -(-shape[0] // by) * by, -(-shape[1] // bx) * bx
             img = np.zeros((hp, wp), np.int32)
             img[:shape[0], :shape[1]] = raw
@@ -246,23 +291,74 @@ def phase_k1(dev, rng):
                                                         block=(by, bx))
             check_equal(got, want, "K1 %s block %s four=%s"
                         % (shape, (by, bx), four))
-            if shape == (4096, 4096):
-                print("K1 at 4096^2 four=%s: kernel %.3f ms, plain %.2f ms"
-                      % (four, cuda_ms(lambda: local_ccl.local_ccl_blocks(
-                          img_t, 0, four, block=(by, bx))),
-                         cuda_ms(lambda: local_ccl.local_ccl_blocks_reference(
-                             img_t, 0, four, block=(by, bx)),
-                             reps=3, warmup=1)))
             raw_t = torch.from_numpy(raw).to(dev)
             seg_k, n_k, _ = clump.clump_labels(raw_t, 0, four)
             seg_p, n_p, _ = clump.clump_labels(
                 raw_t, 0, four,
                 local_ccl=local_ccl.local_ccl_blocks_reference)
+            seg_s, n_s, _ = clump.clump_labels(raw_t, 0, four,
+                                               two_level=False)
             check_equal(seg_k, seg_p, "clump_labels K1 vs plain seed %s"
                         % (shape,))
-            assert n_k == n_p
+            check_equal(seg_k, seg_s, "clump_labels two-level vs sweeps %s"
+                        % (shape,))
+            assert n_k == n_p == n_s
             print("K1 %s block %s four=%s: equal, clump_labels equal "
-                  "(%d clumps)" % (shape, (by, bx), four, n_k))
+                  "(%d clumps; K1 or plain seed, two-level or sweeps)"
+                  % (shape, (by, bx), four, n_k))
+    if clump.clump_labels.fallbacks:
+        raise AssertionError("phase 3: the two-level verify failed %d times"
+                             % clump.clump_labels.fallbacks)
+    # K1's time by block shape at the sizes of config1's and a tile's
+    # cluster images (the default block first)
+    for size in (1024, 4096):
+        for four in (True, False):
+            img_t = torch.from_numpy(random_clusters(
+                rng, (size, size))).to(dev)
+            for block in K1_BLOCKS:
+                check_equal(local_ccl.local_ccl_blocks(img_t, 0, four,
+                                                       block=block),
+                            local_ccl.local_ccl_blocks_reference(
+                                img_t, 0, four, block=block),
+                            "K1 %d^2 block %s four=%s" % (size, block, four))
+                time_k1(img_t, block, four, "random clusters %d^2" % size)
+
+
+def time_clump(clusters, four, two_level, reps=3):
+    """The clump stage between synchronize()s: (best wall s, labels,
+    stats of the last call)."""
+    walls = []
+    for _ in range(reps):
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        seg, num, _ = clump.clump_labels(clusters, 0, four,
+                                         two_level=two_level, stats=stats)
+        torch.cuda.synchronize()
+        walls.append(time.time() - t0)
+    return min(walls), (seg, num), stats
+
+
+def clump_ab(clusters, four, what):
+    """two_level on against off in one process, in turns (on, off, off,
+    on): labels equal, both clump-stage walls printed."""
+    got = {}
+    for two_level in (True, False, False, True):
+        wall, result, stats = time_clump(clusters, four, two_level)
+        prev = got.setdefault(two_level, (wall, result, stats))
+        got[two_level] = (min(wall, prev[0]), result, stats)
+    (on_wall, on, stats), (off_wall, off, off_stats) = got[True], got[False]
+    check_equal(on[0], off[0], "%s: two-level vs sweeps labels" % what)
+    assert on[1] == off[1]
+    if stats["fallback"] or not stats["two_level"]:
+        raise AssertionError("%s: two-level path not taken: %s"
+                             % (what, stats))
+    print("%s clump stage four=%s: two-level %.2f ms (%d boundary edges, "
+          "%d merge iterations, fallback %s), sweeps %.2f ms (%d sweeps); "
+          "%d clumps, labels equal"
+          % (what, four, on_wall * 1e3, stats["edges"],
+             stats["merge_iterations"], stats["fallback"], off_wall * 1e3,
+             off_stats["sweeps"], on[1]))
 
 
 # K2 rows of phase 4: (what, index shape, table entries, index dtype,
@@ -302,6 +398,19 @@ def k2_inputs(dev, rng, shape, c, idx_dtype, table_dtype, offset=0):
     idx = torch.from_numpy(rng.integers(0, c, size=n + offset)).to(
         dev, idx_dtype)[offset:].view(shape)
     return idx, table
+
+
+def library_gather(idx, table):
+    """The one PyTorch call that computes K2's function: the yardstick of
+    phase 4 (the port never calls it)."""
+    return torch.index_select(table, 0, idx.reshape(-1)).view(idx.shape)
+
+
+def k2_bytes(idx, table):
+    """Bytes K2 must move: the indices read, the output written, the table
+    read once."""
+    return (idx.numel() * (idx.element_size() + table.element_size()) +
+            table.numel() * table.element_size())
 
 
 def kernels_of(fn):
@@ -363,19 +472,24 @@ def phase_k2(dev, rng):
         route = lut.lut_route(idx.numel(), c, table_dtype, limit)
         p_ms = cuda_ms(lambda: lut.lut_gather_reference(idx, table))
         k_ms = cuda_ms(lambda: lut.lut_gather(idx, table))
+        lib_ms = cuda_ms(lambda: library_gather(idx, table))
+        b_ms = bound_ms(k2_bytes(idx, table))
         others = ", ".join(
             "%s %.4f ms" % (r, cuda_ms(
                 lambda: lut.lut_gather(idx, table, route=r)))
             for r in routes if r != route)
         print("K2 %s, %s %s from %d %s%s: equal on %s; route %s, kernel "
-              "%.4f ms, plain %.4f ms%s"
+              "%.4f ms, plain %.4f ms, index_select %.4f ms, bound %.4f ms "
+              "(%.1f%% of bound)%s"
               % (what, shape, str(idx_dtype)[6:], c, str(table_dtype)[6:],
                  ", offset %d" % offset if offset else "",
-                 " and ".join(routes), route, k_ms, p_ms,
-                 " (%s)" % others if others else ""))
+                 " and ".join(routes), route, k_ms, p_ms, lib_ms, b_ms,
+                 100 * b_ms / k_ms, " (%s)" % others if others else ""))
         if what == "graph pass, 4096^2 tile":
-            record = dict(ms=k_ms, plain_ms=p_ms, max_abs_err=max_abs_err(
-                lut.lut_gather(idx, table), want))
+            record = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bound_by="bytes", library_ms=lib_ms,
+                          max_abs_err=max_abs_err(
+                              lut.lut_gather(idx, table), want))
         if what in ("graph pass, 4096^2 tile",
                     "remap composition, 4096^2 tile"):
             check_no_casts(lambda: lut.lut_gather(idx, table), what)
@@ -408,6 +522,13 @@ def phase_k2_sweep(dev, rng):
                  lut.STAGED_MIN_REUSE, lut.STAGED_MIN_BYTES // 1024))
 
 
+def tile_clusters(img, km, dev):
+    """The cluster image doShepherdSegmentation clumps (int32, null 0)."""
+    return shepseg.assign_clusters(
+        shepseg.image_tensor(img, dev),
+        torch.as_tensor(km.cluster_centers_, device=dev), 0, False)
+
+
 def phase_config1(dev):
     """End to end at bench config1; returns (launches, kernel records)."""
     phase("5 end to end, config1 1024x1024")
@@ -431,6 +552,8 @@ def phase_config1(dev):
         if count == 0:
             raise AssertionError("config1: %s never launched" % name)
     nseg = int(res.segimg.max())
+    if clump.clump_labels.fallbacks:
+        raise AssertionError("config1: two-level verify failed")
     print("config1: segimg cuda == cpu; %d segments, %d clumps, %d sweeps, "
           "%d graph passes, %d host syncs, %.3f s (first call), launches "
           "%s, K2 by route %s"
@@ -439,20 +562,18 @@ def phase_config1(dev):
              syncs, wall, launches, routes))
 
     # each kernel's time at its shape on this path, beside the plain one
-    clusters = shepseg.assign_clusters(
-        shepseg.image_tensor(img, dev),
-        torch.as_tensor(km.cluster_centers_, device=dev), 0, False)
+    clusters = tile_clusters(img, km, dev)
+    clump_ab(clusters, True, "config1")
     blk, _ = local_ccl.block_shape_for(1024, 1024)
     k1 = local_ccl.local_ccl_blocks(clusters, 0, True, block=blk)
     k1_ref = local_ccl.local_ccl_blocks_reference(clusters, 0, True,
                                                   block=blk)
     check_equal(k1, k1_ref, "K1 at config1 clusters")
+    k_ms, p_ms, b_ms = time_k1(clusters, blk, True, "config1 clusters")
     records = {"local_ccl": dict(
-        ms=cuda_ms(lambda: local_ccl.local_ccl_blocks(clusters, 0, True,
-                                                      block=blk)),
-        plain_ms=cuda_ms(lambda: local_ccl.local_ccl_blocks_reference(
-            clusters, 0, True, block=blk), reps=3, warmup=1),
-        max_abs_err=max_abs_err(k1, k1_ref))}
+        shape="config1 1024^2 cluster image, block %dx%d, 4-connected"
+        % blk, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by="bytes",
+        library_ms=None, max_abs_err=max_abs_err(k1, k1_ref))}
     seg_t = torch.from_numpy(res.segimg.astype(np.int32)).to(dev)
     table = torch.arange(nseg + 1, dtype=torch.int32, device=dev).flip(0)
     k2 = lut.lut_gather(seg_t, table)
@@ -462,6 +583,8 @@ def phase_config1(dev):
         shape="final relabel, 1024^2 int32 from %d int32" % (nseg + 1),
         ms=cuda_ms(lambda: lut.lut_gather(seg_t, table)),
         plain_ms=cuda_ms(lambda: lut.lut_gather_reference(seg_t, table)),
+        bound_ms=bound_ms(k2_bytes(seg_t, table)), bound_by="bytes",
+        library_ms=cuda_ms(lambda: library_gather(seg_t, table)),
         max_abs_err=max_abs_err(k2, k2_ref))
     print("kernel ms at config1 shapes (K1 on the 1024^2 cluster image, "
           "K2 on the 1024^2 final relabel):", records)
@@ -497,12 +620,58 @@ def phase_tile(dev):
     for name, count in launches.items():
         if count == 0:
             raise AssertionError("4096^2: %s never launched" % name)
+    if clump.clump_labels.fallbacks:
+        raise AssertionError("4096^2: two-level verify failed")
     print("4096^2: %d clumps (capacity %d), %d segments, %d sweeps, "
           "%d graph passes, %d host syncs, first %.3f s, second %.3f s, "
           "peak %.1f MiB, launches %s, K2 by route %s; labels contiguous, "
           "every segment one component"
           % (nclumps, nclumps + 1, nseg, res.clumpSweeps, res.elimPasses,
              syncs, walls[0], walls[1], peak / 2 ** 20, launches, routes))
+
+    clusters = tile_clusters(img, km, dev)
+    for four in (True, False):
+        clump_ab(clusters, four, "tile4096")
+        time_k1(clusters, local_ccl.block_shape_for(4096, 4096)[0], four,
+                "tile4096 clusters")
+    # the block edge: K1's time against the merge's boundary edges
+    saved = local_ccl.BLOCK
+    try:
+        for edge in (64, 128, 256):
+            local_ccl.BLOCK = edge
+            for four in (True, False):
+                k_ms = cuda_ms(lambda: local_ccl.local_ccl_blocks(
+                    clusters, 0, four, block=edge))
+                wall, _, stats = time_clump(clusters, four, True)
+                print("tile4096 block %d four=%s: K1 %.4f ms, two-level "
+                      "clump stage %.2f ms, %d boundary edges, %d merge "
+                      "iterations" % (edge, four, k_ms, wall * 1e3,
+                                      stats["edges"],
+                                      stats["merge_iterations"]))
+    finally:
+        local_ccl.BLOCK = saved
+
+    # the whole tile with the sweeps forced, in turns with the default
+    sweeps_only = functools.partial(clump.clump_labels, two_level=False)
+    segment = shepseg.clump_labels
+    got = {}
+    for two_level in (True, False, False, True):
+        shepseg.clump_labels = segment if two_level else sweeps_only
+        try:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            res_ab = shepseg.doShepherdSegmentation(
+                img, kmeansObj=km, device="cuda", **CONFIG1)
+            torch.cuda.synchronize()
+        finally:
+            shepseg.clump_labels = segment
+        got.setdefault(two_level, []).append(time.time() - t0)
+        if not np.array_equal(res_ab.segimg, seg):
+            raise AssertionError("4096^2: two_level=%s changes segimg"
+                                 % two_level)
+    print("4096^2 warm wall, two-level %s s, sweeps %s s; segimg equal"
+          % (["%.3f" % x for x in got[True]],
+             ["%.3f" % x for x in got[False]]))
 
 
 def check_mosaic(seg, hist, maxSegId, hasEmpty, npix, what):
@@ -529,9 +698,10 @@ def report_run(name, wall, npix, timings, peak, ntiles, launches):
     ivals = " ".join("%s %.3f" % (k, totals[k]['total'])
                      for k in INTERVALS if k in totals)
     print("%s: %d tiles, wall %.3f s, %.2f Mpix/s, peak %.1f MiB, "
-          "launches %s, K2 by route %s | Timers (s): %s"
+          "launches %s, K2 by route %s, two-level fallbacks %d | Timers "
+          "(s): %s"
           % (name, ntiles, wall, npix / 1e6 / wall, peak / 2 ** 20,
-             launches, read_routes(), ivals))
+             launches, read_routes(), clump.clump_labels.fallbacks, ivals))
 
 
 def scene_file(tmp, h, w, ncells):
@@ -570,6 +740,9 @@ def tiled_run(name, inpath, out, km, cfg, npix):
         raise AssertionError("%s: %d tiles, not 9" % (name, ntiles))
     report_run(name, wall, npix, res.timings,
                torch.cuda.max_memory_allocated(), ntiles, launches)
+    if clump.clump_labels.fallbacks:
+        raise AssertionError("%s: the two-level verify failed on %d tiles"
+                             % (name, clump.clump_labels.fallbacks))
     return res, launches
 
 

@@ -111,6 +111,9 @@ def lib():
             handle.local_ccl_launch.restype = i32
             handle.local_ccl_launch.argtypes = [
                 vp, vp, i32, i32, i32, i32, i32, i32, vp]
+            handle.local_ccl_occupancy.restype = i32
+            ip = ctypes.POINTER(i32)
+            handle.local_ccl_occupancy.argtypes = [i32, i32, i32, ip, ip]
             handle.lut_gather_launch.restype = i32
             handle.lut_gather_launch.argtypes = [
                 vp, i32, vp, i32, vp, i64, i64, i32, i32, vp]

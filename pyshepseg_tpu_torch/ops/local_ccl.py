@@ -1,16 +1,16 @@
 """
-Block-local connected-component labels, the seed of the global clump loop
-(counterpart: pyshepseg_tpu/ops/pallas_ccl.py, whose Pallas kernel
-``_local_ccl_kernel`` this module's CUDA kernel K1, csrc/local_ccl.cu,
-replaces).
+Block-local connected-component labels, which ops/clump.py merges across
+block boundaries (counterpart: pyshepseg_tpu/ops/pallas_ccl.py, whose
+Pallas kernel ``_local_ccl_kernel`` this module's CUDA kernel K1,
+csrc/local_ccl.cu, replaces).
 
 Contract, as the TPU kernel's: the image is cut into by x bx blocks; every
 valid pixel (``img != ignore_val``) is labelled with the smallest global
 flat index, in the padded image, of its connected component inside its
 block; invalid pixels get INT32_MAX. Labels only decrease toward the
 global component minimum and always hold the flat index of a pixel of the
-same component, so the seed speeds up the global fixpoint loop of
-ops/clump.py without changing its result.
+same component, so clump's fallback sweeps converge from them to the same
+result.
 """
 
 import torch
@@ -18,13 +18,29 @@ import torch
 from .. import _kernels
 from .shifts import shift, offsets_for
 
-# Default block edge. The TPU kernel's 256 (512 KB of labels + image) does
-# not fit the 227 KB of shared memory an H100 block can use; 128 x 128
-# takes 128 KB.
+# Default block edge. K1 keeps 3 bytes a pixel in shared memory (a 16-bit
+# parent and a flag byte, rows padded to a power of two), so 128 x 128
+# takes 48 KB and four blocks share an H100 SM; the TPU kernel's 256 x 256
+# fits as well (192 KB), at one block an SM. On a 4096^2 tile 128 balances
+# K1's time (lower for smaller blocks) against the boundary pairs the
+# clump merge sorts (half for each doubling of the edge); chip_smoke.py
+# phases 3 and 6 time 64, 128 and 256 (PERF.md).
 BLOCK = 128
 INT32_MAX = 2147483647
-# shared memory one H100 block may use (bytes); the kernel needs 8 a pixel
-MAX_SHARED_BYTES = 232448
+# pixels of one block, padded rows included: local indices are 16-bit (and
+# 3 bytes a pixel stay under the 227 KB of shared memory a block may use)
+MAX_BLOCK_PIXELS = 65536
+
+
+def row_stride(bx: int) -> int:
+    """K1's row stride in shared memory: ``bx`` rounded up to a power of
+    two."""
+    return 1 << max(0, int(bx) - 1).bit_length()
+
+
+def shared_bytes(by: int, bx: int) -> int:
+    """Dynamic shared memory K1 takes for a (by, bx) block."""
+    return 3 * by * row_stride(bx)
 
 
 def block_shape_for(h: int, w: int):
@@ -93,9 +109,10 @@ def local_ccl_blocks(img, ignore_val, four_connected: bool, block=None):
     if h % by or w % bx:
         raise ValueError("image %s is not a multiple of block %s"
                          % ((h, w), (by, bx)))
-    if 8 * by * bx > MAX_SHARED_BYTES:
+    if by * row_stride(bx) > MAX_BLOCK_PIXELS:
         raise ValueError("block %s needs more shared memory than a block "
-                         "has" % ((by, bx),))
+                         "has (%d bytes, 16-bit local indices)"
+                         % ((by, bx), shared_bytes(by, bx)))
     if img.device.type == "cpu":
         return local_ccl_blocks_reference(img, ignore_val, four_connected,
                                           (by, bx))
@@ -118,3 +135,17 @@ def local_ccl_blocks(img, ignore_val, four_connected: bool, block=None):
 
 
 local_ccl_blocks.launches = 0
+
+
+def occupancy(block, four_connected=True, device="cuda"):
+    """How K1 launches a (by, bx) block on the CUDA ``device``:
+    (threads, shared bytes per block, blocks resident per SM)."""
+    import ctypes
+    by, bx = _block_arg(block, BLOCK, BLOCK)
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    with torch.cuda.device(torch.device(device)):
+        blocks = _kernels.lib().local_ccl_occupancy(
+            by, bx, int(bool(four_connected)), ctypes.byref(threads),
+            ctypes.byref(smem))
+    _kernels.check(max(0, -blocks), "local_ccl_occupancy")
+    return threads.value, smem.value, blocks

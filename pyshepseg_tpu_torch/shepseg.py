@@ -55,7 +55,7 @@ class SegmentationResult(object):
         Number of small segments merged into adjacent segments
     clumpSweeps : int
         Diagnostic (not in the reference): global label-propagation sweeps
-        the clump fixpoint took
+        the clump fixpoint took; 0 when the two-level merge's answer stood
     elimPasses : int
         Diagnostic: find+apply passes the elimination graph loop executed
         across all target sizes

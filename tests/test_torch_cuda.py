@@ -157,17 +157,23 @@ def test_segmentation_on_card_matches_cpu(four_connected, min_size):
     assert got.smallSegmentsEliminated == want.smallSegmentsEliminated
 
 
-@pytest.mark.parametrize("block", [32, 128])
-@pytest.mark.parametrize("pattern", ["uniform", "stripes", "checker"])
+@pytest.mark.parametrize("block", [32, 128, (256, 256), (128, 256), (40, 72)])
+@pytest.mark.parametrize("pattern", ["uniform", "stripes", "checker",
+                                     "columns", "spiral"])
 def test_local_ccl_kernel_under_contention(block, pattern):
     """Shapes that stress the union-find: one component per block (every
-    thread hooks into the same tree), long thin components, and diagonal
-    -only connections (8-connected checkerboard)."""
+    thread hooks into the same tree), long thin components across rows and
+    across warp segments, a spiral, and diagonal-only connections
+    (8-connected checkerboard)."""
     need_cuda()
-    yy, xx = np.mgrid[0:256, 0:384]
+    by, bx = (block, block) if isinstance(block, int) else block
+    h, w = -(-256 // by) * by, -(-384 // bx) * bx
+    yy, xx = np.mgrid[0:h, 0:w]
     img = {"uniform": np.ones_like(yy),
            "stripes": 1 + (yy // 2) % 2,
-           "checker": 1 + (yy + xx) % 2}[pattern].astype(np.int32)
+           "checker": 1 + (yy + xx) % 2,
+           "columns": 1 + (xx // 3) % 2,
+           "spiral": _spiral(h, w)}[pattern].astype(np.int32)
     img_t = torch.from_numpy(img).cuda()
     for four_connected in (True, False):
         got = local_ccl.local_ccl_blocks(img_t, 0, four_connected,
@@ -175,6 +181,94 @@ def test_local_ccl_kernel_under_contention(block, pattern):
         want = local_ccl.local_ccl_blocks_reference(img_t, 0, four_connected,
                                                     block=block)
         assert torch.equal(got, want)
+
+
+def _spiral(h, w):
+    """A one-pixel-wide spiral of 1s on 2s."""
+    img = np.full((h, w), 2)
+    y0, x0, y1, x1 = 0, 0, h - 1, w - 1
+    while y0 <= y1 and x0 <= x1:
+        img[y0, x0:x1 + 1] = 1
+        img[y0:y1 + 1, x1] = 1
+        if y1 - y0 >= 2:
+            img[y1, x0:x1 + 1] = 1
+        if x1 - x0 >= 2:
+            img[y0 + 2:y1 + 1, x0] = 1
+        y0, x0, y1, x1 = y0 + 2, x0 + 2, y1 - 2, x1 - 2
+    return img
+
+
+@pytest.mark.parametrize("block", [(256, 256), (128, 256), (64, 64),
+                                   (40, 72), (8, 8), (104, 64)])
+@pytest.mark.parametrize("four_connected", [True, False])
+def test_local_ccl_kernel_block_shapes(block, four_connected):
+    """Every block shape K1 takes: BLOCK, 256 x 256, non-square and
+    non-power-of-two blocks (a small image's one block), ragged images
+    padded to whole blocks; one launch each."""
+    need_cuda()
+    by, bx = block
+    shape = (3 * by - 5, 2 * bx + 3)
+    padded = np.zeros((-(-shape[0] // by) * by, -(-shape[1] // bx) * bx),
+                      np.int32)
+    padded[:shape[0], :shape[1]] = random_clusters(
+        np.random.default_rng(6), shape)
+    img = torch.from_numpy(padded).cuda()
+    before = local_ccl.local_ccl_blocks.launches
+    got = local_ccl.local_ccl_blocks(img, 0, four_connected, block=block)
+    want = local_ccl.local_ccl_blocks_reference(img, 0, four_connected,
+                                                block=block)
+    assert torch.equal(got, want)
+    assert local_ccl.local_ccl_blocks.launches == before + 1
+
+
+def test_local_ccl_occupancy():
+    need_cuda()
+    threads, smem, per_sm = local_ccl.occupancy((128, 128))
+    assert (threads, smem) == (512, local_ccl.shared_bytes(128, 128))
+    assert per_sm >= 1
+    threads, smem, per_sm = local_ccl.occupancy((256, 256), False)
+    assert smem == 3 * 256 * 256 and per_sm >= 1
+
+
+@pytest.mark.parametrize("two_level", [None, False])
+@pytest.mark.parametrize("four_connected", [True, False])
+def test_clump_labels_on_card_matches_cpu(two_level, four_connected):
+    """The two-level merge and the sweeps on the card, each equal to the
+    CPU run, with K1 launched once a call."""
+    need_cuda()
+    clusters = torch.from_numpy(random_clusters(
+        np.random.default_rng(12), (300, 421), nclusters=2).astype(np.int32))
+    before = local_ccl.local_ccl_blocks.launches
+    stats = {}
+    got = clump.clump_labels(clusters.cuda(), 0, four_connected,
+                             two_level=two_level, stats=stats)
+    assert local_ccl.local_ccl_blocks.launches == before + 1
+    want = clump.clump_labels(clusters, 0, four_connected,
+                              two_level=two_level)
+    assert torch.equal(got[0].cpu(), want[0])
+    assert got[1] == want[1]
+    assert stats["two_level"] == (two_level is None)
+    assert not stats["fallback"]
+
+
+def test_clump_labels_on_card_falls_back():
+    """A seed that is not block-converged: the verify fails on the card
+    too, and the sweeps give the CPU's answer."""
+    need_cuda()
+    clusters = torch.from_numpy(random_clusters(
+        np.random.default_rng(13), (260, 300), nclusters=2).astype(np.int32))
+
+    def own_index(img, ignore_val, four_connected, block=None):
+        flat = torch.arange(img.numel(), dtype=torch.int32,
+                            device=img.device).reshape(img.shape)
+        return torch.where(img != ignore_val, flat, local_ccl.INT32_MAX)
+
+    stats = {}
+    got = clump.clump_labels(clusters.cuda(), 0, True, local_ccl=own_index,
+                             stats=stats)
+    want = clump.clump_labels(clusters, 0, True, two_level=False)
+    assert stats["fallback"] and stats["sweeps"] > 0
+    assert torch.equal(got[0].cpu(), want[0])
 
 
 def _tiled(tmp_path, name, km, device, **kw):

@@ -11,6 +11,8 @@ from pyshepseg_tpu_torch.ops import local_ccl
 from torch_parity import padded_clusters
 
 INT32_MAX = 2147483647
+# shared memory one H100 block may use (bytes)
+H100_BLOCK_SHARED_BYTES = 232448
 
 
 def _is_block_fixpoint(img, lab, block, four_connected):
@@ -70,11 +72,28 @@ def test_rejects_ragged_image():
 
 
 def test_rejects_block_beyond_shared_memory():
-    # the TPU kernel's 256x256 block does not fit a Hopper block's shared
-    # memory; the limit holds on every device, so CPU and card agree
-    with pytest.raises(ValueError):
-        local_ccl.local_ccl_blocks(
-            torch.zeros((512, 512), dtype=torch.int32), 0, True, block=256)
+    # K1 takes the TPU kernel's 256x256 block (192 KB of shared memory),
+    # and no block of more than 65536 pixels (16-bit local indices; rows
+    # padded to a power of two); the limit holds on every device, so CPU
+    # and card agree
+    got = local_ccl.local_ccl_blocks(
+        torch.ones((512, 512), dtype=torch.int32), 0, True, block=256)
+    assert (got[:256, :256] == 0).all() and (got[256:, 256:] == 256 * 513
+                                              ).all()
+    for block in [512, (256, 512), (300, 200)]:
+        with pytest.raises(ValueError):
+            local_ccl.local_ccl_blocks(
+                torch.zeros((600, 1024), dtype=torch.int32), 0, True,
+                block=block)
+
+
+@pytest.mark.parametrize("by,bx,stride,nbytes", [
+    (128, 128, 128, 49152), (256, 256, 256, 196608), (40, 72, 128, 15360),
+    (8, 8, 8, 192), (1, 1, 1, 3)])
+def test_shared_footprint(by, bx, stride, nbytes):
+    assert local_ccl.row_stride(bx) == stride
+    assert local_ccl.shared_bytes(by, bx) == nbytes
+    assert nbytes <= H100_BLOCK_SHARED_BYTES
 
 
 @pytest.mark.parametrize("h,w", [(1, 1), (80, 80), (128, 300), (1000, 77)])
@@ -83,5 +102,6 @@ def test_block_shape_for(h, w):
     assert hp % by == 0 and wp % bx == 0
     assert hp >= h and wp >= w
     assert by <= local_ccl.BLOCK and bx <= local_ccl.BLOCK
-    assert 8 * by * bx <= local_ccl.MAX_SHARED_BYTES
+    assert local_ccl.shared_bytes(by, bx) <= H100_BLOCK_SHARED_BYTES
+    assert by * local_ccl.row_stride(bx) <= local_ccl.MAX_BLOCK_PIXELS
 
