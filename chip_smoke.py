@@ -14,7 +14,11 @@ bit for bit), serially over a denser 8000x8000 scene (K2 on every tile),
 and over a 1536x1536 scene on the card and on the CPU (equal bit for
 bit); last, doShepherdSegmentation on a noisy 2048x2048 image whose table
 is above K2's staged route, on the card and on the CPU (equal bit for
-bit).
+bit). Over the 8000x8000 serial output it runs the per-segment statistics
+engine (every statistic on the 4 bands: the device engine from the
+scene-resident feed and from per-tile reads, and the host engine, equal
+bit for bit; the spatial built-ins, device route against host route) and
+the tiling command line end to end (segmentation, stats, colour table).
 
     python3 chip_smoke.py
 
@@ -27,6 +31,7 @@ and the per-kernel JSON record (times, bound, plain version and library
 call), whose launch counts are those of the serial tiled run.
 """
 
+import contextlib
 import functools
 import json
 import os
@@ -42,8 +47,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from pyshepseg_tpu_torch import _kernels, shepseg, tiling  # noqa: E402
-from pyshepseg_tpu_torch import io as rio, native  # noqa: E402
+from pyshepseg_tpu_torch import io as rio, native, tilingstats  # noqa: E402
+from pyshepseg_tpu_torch.cmdline import tiling as tiling_cli  # noqa: E402
 from pyshepseg_tpu_torch.ops import clump, local_ccl, lut  # noqa: E402
+from pyshepseg_tpu_torch.ops import segstats  # noqa: E402
 from pyshepseg_tpu_torch.ops.sync import to_host  # noqa: E402
 from pyshepseg_tpu_torch.timinghooks import Timers  # noqa: E402
 
@@ -815,7 +822,273 @@ def phase_tiled(tmp):
     print("tiled 8000^2: serial == threads == 3-phase bit for bit; %d "
           "segments, no empty ids, histogram sums to %d"
           % (runs["serial"][1], hist0.sum()))
-    return serial
+    return serial, inpath, runs["serial"][0]
+
+
+# every statistic the engine has, on every band (phase 9)
+STATS = [("min", "min"), ("max", "max"), ("mean", "mean"),
+         ("stddev", "stddev"), ("median", "median"), ("mode", "mode"),
+         ("p25", "percentile", 25), ("pixcount", "pixcount")]
+STATS_INTERVALS = ("reading", "compaction", "accumulation",
+                   "statscompletion", "writing")
+
+
+def rat_columns(path, names):
+    rat = rio.open(path).GetRasterBand(1).GetDefaultRAT()
+    have = [rat.GetNameOfCol(i) for i in range(rat.GetColumnCount())]
+    return {n: rat.ReadAsArray(have.index(n)) for n in names}
+
+
+def report_stats(name, res, wall, npix, extra=""):
+    totals = res.timings.makeSummaryDict()
+    ivals = " ".join("%s %.3f" % (k, totals[k]['total'])
+                     for k in STATS_INTERVALS if k in totals)
+    print("%s: wall %.3f s, %.2f Mpix/s, peak %.1f MiB%s | Timers (s): %s"
+          % (name, wall, npix / 1e6 / wall,
+             torch.cuda.max_memory_allocated() / 2 ** 20, extra, ivals))
+
+
+def device_busy_s(prof):
+    """Seconds in which the card ran a kernel or a copy, from a
+    torch.profiler trace (the union of the device's event intervals); 0
+    if the profiler saw no device activity."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e6
+
+
+def stats_run(name, scene, segpath, bands, engine, npix, fraction=0.25,
+              profiled=False):
+    """One calcPerSegmentStatsTiledMultiBand of every statistic over
+    ``bands`` into columns prefixed ``name``, on the card, with the scene
+    budget's memory share ``fraction`` (0 forces the per-tile feed); under
+    torch.profiler with ``profiled``, whose trace gives the card's busy
+    and idle share of the wall. Returns the column names."""
+    from torch.profiler import ProfilerActivity, profile
+    sel = [[("%s_b%d_%s" % (name, b, st[0]),) + st[1:] for st in STATS]
+           for b in bands]
+    saved = tiling.SCENE_CACHE_HBM_FRACTION
+    tiling.SCENE_CACHE_HBM_FRACTION = fraction
+    tracer = (profile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA])
+              if profiled else contextlib.nullcontext())
+    try:
+        segstats.windowRuns.cuda_calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        with tracer as prof:
+            t0 = time.time()
+            res = tilingstats.calcPerSegmentStatsTiledMultiBand(
+                scene, bands, segpath, sel, engine=engine, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+    finally:
+        tiling.SCENE_CACHE_HBM_FRACTION = saved
+    extra = ", compaction on the card %d times" % (
+        segstats.windowRuns.cuda_calls)
+    if profiled:
+        busy = device_busy_s(prof)
+        extra += (", under torch.profiler: card busy %.3f s, idle share "
+                  "%.1f %%" % (busy, 100 * (1 - busy / wall)) if busy else
+                  ", under torch.profiler: no device activity traced")
+    report_stats(name, res, wall, npix, extra)
+    if (engine == "device") != (segstats.windowRuns.cuda_calls > 0):
+        raise AssertionError("stats %s: compaction ran on the card %d times"
+                             % (name, segstats.windowRuns.cuda_calls))
+    return [c[0] for b in sel for c in b]
+
+
+def spatial_run(name, scene, segpath, cols, userFunc, param, engine, npix):
+    """One calcPerSegmentSpatialStatsTiled on band 1; returns its
+    columns."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    res = tilingstats.calcPerSegmentSpatialStatsTiled(
+        scene, 1, segpath, cols, userFunc, param, engine=engine,
+        device="cuda")
+    wall = time.time() - t0
+    report_stats("spatial %s (%s engine)" % (name, engine), res, wall, npix)
+    return list(rat_columns(segpath, [c[0] for c in cols]).values())
+
+
+def phase_stats(scene, segpath):
+    """The statistics engine over phase 7's serial output: every
+    statistic on all 4 bands by the device engine with the scene-resident
+    feed, the device engine with the per-tile feed, and the host engine,
+    equal bit for bit; pixcount against a bincount of the segmentation.
+    Then the spatial built-ins on band 1, device route against host
+    route. A nodata value that occurs in the image is set on every band
+    for the phase and taken off after it."""
+    phase("9 stats over scene8000's output: device scene feed, device "
+          "per-tile feed, host engine (tolerance: exact)")
+    ds = rio.open(scene, rio.GA_Update)
+    nodata = int(ds.GetRasterBand(1).ReadAsArray(
+        ds.RasterXSize // 2, ds.RasterYSize // 2, 1, 1)[0, 0])
+    for b in range(1, 5):
+        ds.GetRasterBand(b).SetNoDataValue(nodata)
+    try:
+        run_stats_phase(scene, segpath, nodata)
+    finally:
+        for b in range(1, 5):
+            ds.GetRasterBand(b).SetNoDataValue(None)
+
+
+def run_stats_phase(scene, segpath, nodata):
+    seg = rio.open(segpath).GetRasterBand(1).ReadAsArray()
+    npix = seg.size
+    bands = [1, 2, 3, 4]
+    names = {run: stats_run(run, scene, segpath, bands, engine, npix,
+                            fraction, run == "profiled")
+             for run, engine, fraction in [("scene", "device", 0.25),
+                                           ("tiles", "device", 0.0),
+                                           ("host", "host", 0.25),
+                                           ("profiled", "device", 0.25)]}
+    cols = {run: rat_columns(segpath, n) for run, n in names.items()}
+    for run in ("tiles", "host", "profiled"):
+        for a, b in zip(names["scene"], names[run]):
+            if not np.array_equal(cols["scene"][a], cols[run][b]):
+                raise AssertionError("stats: %s differs from %s" % (b, a))
+    img = rio.open(scene)
+    nulls = 0
+    for b in bands:
+        valid = img.GetRasterBand(b).ReadAsArray() != nodata
+        nulls += seg.size - int(valid.sum())
+        want = np.bincount(seg[valid], minlength=len(
+            cols["scene"]["scene_b%d_pixcount" % b]))
+        want[0] = 0
+        if not np.array_equal(cols["scene"]["scene_b%d_pixcount" % b],
+                              want):
+            raise AssertionError("stats: band %d pixcount differs from the "
+                                 "segmentation's bincount" % b)
+    print("stats: %d columns, scene feed == per-tile feed == host engine "
+          "bit for bit; pixcount == bincount of the segmentation; %d "
+          "segments; nodata %d on %d band pixels"
+          % (len(names["scene"]), int(seg.max()), nodata, nulls))
+
+    # the spatial built-ins on band 1: the device engine's box functions
+    # against the host engine's halo streaming
+    edge = {e: spatial_run("edge pixels", scene, segpath,
+                           [("edge_" + e, rio.GFT_Integer)],
+                           tilingstats.userFuncNumEdgePixels, True, e, npix)
+            for e in ("device", "host")}
+    if not np.array_equal(edge["device"][0], edge["host"][0]):
+        raise AssertionError("spatial: edge pixels differ, device vs host")
+    vario = {e: spatial_run("variogram maxDist 3", scene, segpath,
+                            [("v%d_%s" % (d, e), rio.GFT_Real)
+                             for d in (1, 2, 3)],
+                            tilingstats.userFuncVariogram, 3, e, npix)
+             for e in ("device", "host")}
+    worst = 0.0
+    for dv, hv in zip(vario["device"], vario["host"]):
+        # float32 accumulation order (PARITY.md deviation 6)
+        np.testing.assert_array_equal(dv == -9999, hv == -9999)
+        np.testing.assert_allclose(dv, hv, rtol=1e-5, atol=1e-3)
+        live = hv != -9999
+        worst = max(worst, float(np.max(np.abs(dv[live] - hv[live]) /
+                                        np.maximum(np.abs(hv[live]), 1))))
+    transform = (0.0, 1.0, 0.0, 0.0, 0.0, 1.0)
+    cols_mc = [("mx", rio.GFT_Real), ("my", rio.GFT_Real)]
+    mean_dev = spatial_run("deviceFuncMeanCoord", scene, segpath,
+                           [(c + "_dev", t) for c, t in cols_mc],
+                           tilingstats.deviceFuncMeanCoord, transform,
+                           "device", npix)
+    mean_host = spatial_run("userFuncMeanCoord", scene, segpath,
+                            [(c + "_host", t) for c, t in cols_mc],
+                            tilingstats.userFuncMeanCoord, transform,
+                            "host", npix)
+    for dv, hv in zip(mean_dev, mean_host):
+        np.testing.assert_allclose(dv, hv, rtol=1e-5, atol=1e-2)
+    print("spatial: edge pixels device == host; variograms within rtol "
+          "1e-5 (largest relative difference %.3g); mean coordinates, "
+          "float32 device vs float64 host, within atol 1e-2 px" % worst)
+
+
+def phase_cli(tmp, scene):
+    """The tiling CLI in-process on the scene: segmentation, stats of 3
+    statistics on all 4 bands, colour table from the band means. Every
+    pixel labelled with ids 1..maxSegId, the RAT's stats equal a host
+    engine run on the output, K1 and K2 launched. Returns the
+    launches."""
+    phase("10 tiling CLI end to end on the scene")
+    out = os.path.join(tmp, "cli.npseg")
+    argv = ["pyshepseg_tpu_torch_tiling", "-i", scene, "-o", out,
+            "-b", "1,2,3,4", "--statsbands", "1,2,3,4",
+            "--statspec", "mean", "--statspec", "stddev",
+            "--statspec", "percentile,50", "--colortablebands", "1,2,3",
+            "--fixedkmeansinit"]
+    # the CLI's two passes, timed from inside: their Timers and walls
+    parts = {}
+    segment = tiling.doTiledShepherdSegmentation
+    stats = tilingstats.calcPerSegmentStatsTiledMultiBand
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            t = time.time()
+            res = fn(*args, **kwargs)
+            parts[name] = (time.time() - t, res.timings.makeSummaryDict())
+            return res
+        return call
+
+    saved = sys.argv
+    reset_counts()
+    segstats.windowRuns.cuda_calls = 0
+    torch.cuda.reset_peak_memory_stats()
+    sys.argv = argv
+    tiling.doTiledShepherdSegmentation = timed("segmentation", segment)
+    tilingstats.calcPerSegmentStatsTiledMultiBand = timed("stats", stats)
+    t0 = time.time()
+    try:
+        tiling_cli.mainCmd()
+    finally:
+        sys.argv = saved
+        tiling.doTiledShepherdSegmentation = segment
+        tilingstats.calcPerSegmentStatsTiledMultiBand = stats
+    wall = time.time() - t0
+    launches, compactions = read_counts(), segstats.windowRuns.cuda_calls
+    seg, hist = read_seg(out)
+    print("CLI: %s" % " ".join(argv[1:]))
+    print("CLI: wall %.3f s, %.2f Mpix/s, peak %.1f MiB, launches %s, "
+          "K2 by route %s, compaction on the card %d times"
+          % (wall, seg.size / 1e6 / wall,
+             torch.cuda.max_memory_allocated() / 2 ** 20, launches,
+             read_routes(), compactions))
+    for name, (secs, totals) in parts.items():
+        print("CLI %s pass: %.3f s | Timers (s): %s"
+              % (name, secs, " ".join("%s %.3f" % (k, v['total'])
+                                      for k, v in totals.items())))
+    if launches["local_ccl"] < 9 or launches["lut_gather"] < 1:
+        raise AssertionError("CLI: K1 launched %d times and K2 %d times"
+                             % (launches["local_ccl"],
+                                launches["lut_gather"]))
+    if compactions == 0:
+        raise AssertionError("CLI: the stats pass never ran on the card")
+    check_mosaic(seg, hist, len(hist) - 1, False, seg.size, "CLI")
+    names = ["Band_%d_%s" % (b, s) for b in (1, 2, 3, 4)
+             for s in ("mean", "stddev", "pcnt50")]
+    sel = [[("host_Band_%d_mean" % b, "mean"),
+            ("host_Band_%d_stddev" % b, "stddev"),
+            ("host_Band_%d_pcnt50" % b, "percentile", 50)]
+           for b in (1, 2, 3, 4)]
+    t0 = time.time()
+    tilingstats.calcPerSegmentStatsTiledMultiBand(
+        scene, [1, 2, 3, 4], out, sel, engine="host", device="cuda")
+    host_wall = time.time() - t0
+    cols = rat_columns(out, names + ["host_" + n for n in names] +
+                       ["Red", "Green", "Blue"])
+    for n in names:
+        if not np.array_equal(cols[n], cols["host_" + n]):
+            raise AssertionError("CLI: %s differs from the host engine's"
+                                 % n)
+    print("CLI: %d segments, every pixel labelled 1..maxSegId, %d stats "
+          "columns equal the host engine's (its run %.3f s), colour "
+          "columns present" % (len(hist) - 1, len(names), host_wall))
+    return launches
 
 
 def phase_tiled_dense(tmp):
@@ -938,12 +1211,15 @@ def main():
     config1_launches, records = phase_config1(dev)
     phase_tile(dev)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_tiled(tmp)
+        launches, scene, segpath = phase_tiled(tmp)
+        phase_stats(scene, segpath)
+        cli_launches = phase_cli(tmp, scene)
     with tempfile.TemporaryDirectory() as tmp:
         phase_tiled_dense(tmp)
         phase_tiled_cpu(tmp)
     phase_dense_memory(dev)
     print("config1 launches (in-memory path):", config1_launches)
+    print("tiling CLI launches (phase 10):", cli_launches)
     graph_pass["shape"] = "graph pass, 72000 int32 from 24000 int64"
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], launches=launches[name],

@@ -12,11 +12,14 @@ Covered so far: in-memory segmentation,
 :func:`pyshepseg_tpu_torch.shepseg.doShepherdSegmentation`; the tiled
 driver :func:`pyshepseg_tpu_torch.tiling.doTiledShepherdSegmentation` with
 its stitch, the CONC_NONE / CONC_THREADS / CONC_SUBPROC / CONC_FARGATE
-backends and the 3-phase API; :mod:`.utils`, :mod:`.timinghooks`, and the
-``run_seg`` and segmentation-worker command lines. Every public entry
-point that computes takes an explicit ``device`` (default ``"cuda"``,
-which raises when CUDA is absent); on a CPU device each kernel wrapper
-runs its plain PyTorch version.
+backends and the 3-phase API; the per-segment statistics engine
+:mod:`.tilingstats` with its device run compaction (:mod:`.ops.segstats`)
+and spatial box functions (:mod:`.ops.spatialstats`); :mod:`.utils`,
+:mod:`.timinghooks`, and the ``run_seg``, ``tiling``, ``variograms`` and
+segmentation-worker command lines. Every public entry point that
+computes takes an explicit ``device`` (default ``"cuda"``, which raises
+when CUDA is absent); on a CPU device each kernel wrapper runs its plain
+PyTorch version, and the stats engine's torch ops run on the CPU.
 
 This package imports torch and numpy, never JAX nor the JAX package. Its
 raster I/O (:mod:`.io`, the ``.npseg`` driver that both packages share)

@@ -1,4 +1,4 @@
 """
-Command-line entry points (counterpart: pyshepseg_tpu/cmdline/): run_seg
-and the remote segmentation worker so far.
+Command-line entry points (counterpart: pyshepseg_tpu/cmdline/): run_seg,
+tiling, variograms and the remote segmentation worker so far.
 """

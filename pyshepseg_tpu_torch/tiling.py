@@ -446,6 +446,19 @@ def _hostAvailableBytes():
     return 0
 
 
+def sceneBudgetBytes(device):
+    """Bytes a whole scene may take on ``device`` (the segmentation's
+    scene cache, the stats pass's scene feed): the free memory of a CUDA
+    device, or the host's available memory for the CPU, times
+    SCENE_CACHE_HBM_FRACTION."""
+    device = torch.device(device)
+    if device.type == 'cuda':
+        free = torch.cuda.mem_get_info(device)[0]
+    else:
+        free = _hostAvailableBytes() or SCENE_CACHE_DFLT_BUDGET
+    return free * SCENE_CACHE_HBM_FRACTION
+
+
 class DeviceSceneCache:
     """
     Whole-scene image cache on the device for tiled segmentation.
@@ -473,15 +486,9 @@ class DeviceSceneCache:
 
     @staticmethod
     def fitsOnDevice(inDs, bandNumbers, device):
-        """True if the scene is small enough for the 'auto' cache: the
-        free memory of a CUDA device, or the host's available memory for
-        the CPU, times SCENE_CACHE_HBM_FRACTION."""
-        device = torch.device(device)
-        if device.type == 'cuda':
-            budget = torch.cuda.mem_get_info(device)[0]
-        else:
-            budget = _hostAvailableBytes() or SCENE_CACHE_DFLT_BUDGET
-        budget = budget * SCENE_CACHE_HBM_FRACTION
+        """True if the scene is small enough for the 'auto' cache
+        (:func:`sceneBudgetBytes`)."""
+        budget = sceneBudgetBytes(device)
         itemsize = inDs.GetRasterBand(
             list(bandNumbers)[0]).ReadAsArray(0, 0, 1, 1).itemsize
         sceneBytes = (len(list(bandNumbers)) * itemsize *

@@ -341,3 +341,141 @@ def test_tiled_threads_with_tf32_on_match_serial(tmp_path):
     np.testing.assert_array_equal(seg_g, seg_w)
     np.testing.assert_array_equal(hist_g, hist_w)
     assert got.maxSegId == want.maxSegId
+
+
+# ------------------------------------------------ the stats engine
+
+
+_STATS_DTYPES = {np.uint8: (0, 256), np.uint16: (0, 65536),
+                 np.int8: (-128, 128), np.int16: (-32768, 32768),
+                 np.int32: (-2 ** 31, 2 ** 31 - 1)}
+
+
+@pytest.mark.parametrize("segBase", [0, 70000])
+@pytest.mark.parametrize("dtype", sorted(_STATS_DTYPES, key=str))
+def test_compaction_on_card_matches_cpu(dtype, segBase):
+    """Every supported imagery dtype, segment ids below and above 0xFFFF,
+    one band and three: the card's runs equal the CPU's."""
+    need_cuda()
+    from pyshepseg_tpu_torch.ops import segstats
+    rng = np.random.default_rng(6)
+    seg = (rng.integers(1, 200, size=(300, 310)) + segBase).astype(np.uint32)
+    seg[rng.random(seg.shape) < 0.1] = 0
+    lo, hi = _STATS_DTYPES[dtype]
+    bands = [rng.integers(lo, hi, size=seg.shape).astype(dtype)
+             for _ in range(3)]
+    bands[0][:, :40] = bands[0][0, 0]
+    nulls = [int(bands[0][0, 0]), None, int(bands[2][5, 5])]
+    numSeg = int(seg.max()) + 1
+    before = segstats.windowRuns.cuda_calls
+    got = segstats.compactTileDeviceMultiBand(seg, bands, nulls, numSeg,
+                                              device="cuda")
+    assert segstats.windowRuns.cuda_calls == before + 1
+    want = segstats.compactTileDeviceMultiBand(seg, bands, nulls, numSeg,
+                                               device="cpu")
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            if b is None:
+                assert a is None
+            else:
+                np.testing.assert_array_equal(a, b)
+
+
+def _stats_rasters(tmp_path):
+    """A 300x340 segmentation (Voronoi cells, a null strip, Histogram
+    column) and a 3-band uint16 image with a nodata value on band 1."""
+    from pyshepseg_tpu_torch import io as rio
+    rng = np.random.default_rng(8)
+    _, cells = voronoi_image(rng, shape=(300, 340), ncentres=60)
+    seg = (cells + 1).astype(np.uint32)
+    seg[:5] = 0
+    segpath = str(tmp_path / "seg.npseg")
+    ds = rio.create(segpath, 340, 300, 1, np.uint32)
+    ds.GetRasterBand(1).WriteArray(seg)
+    hist = np.bincount(seg.ravel()).astype(np.float64)
+    hist[0] = 0
+    rat = ds.GetRasterBand(1).GetDefaultRAT()
+    rat.CreateColumn("Histogram", rio.GFT_Real, rio.GFU_PixelCount)
+    rat.WriteArray(hist, 0)
+    img = rng.integers(0, 3000, size=(3, 300, 340)).astype(np.uint16)
+    img[0, rng.random((300, 340)) < 0.05] = 7
+    imgpath = str(tmp_path / "img.npseg")
+    write_raster(imgpath, img)
+    rio.open(imgpath, rio.GA_Update).GetRasterBand(1).SetNoDataValue(7)
+    return segpath, imgpath
+
+
+def _rat_cols(path, names):
+    from pyshepseg_tpu_torch import io as rio
+    rat = rio.open(path).GetRasterBand(1).GetDefaultRAT()
+    have = [rat.GetNameOfCol(i) for i in range(rat.GetColumnCount())]
+    return [rat.ReadAsArray(have.index(n)) for n in names]
+
+
+def test_stats_feeds_on_card_match_host(tmp_path, monkeypatch):
+    """The scene-resident feed and the per-tile feed (two read workers)
+    on the card write the host engine's columns."""
+    need_cuda()
+    from pyshepseg_tpu_torch import tilingstats
+    monkeypatch.setattr(tiling, "TILESIZE", 128)
+    segpath, imgpath = _stats_rasters(tmp_path)
+    stats = [("mn", "min"), ("mean", "mean"), ("sd", "stddev"),
+             ("med", "median"), ("mode", "mode"), ("p0", "percentile", 0),
+             ("n", "pixcount")]
+    names = []
+    for run, engine, fraction, workers in [
+            ("scene", "device", 0.25, 0), ("tiles", "device", 0, 2),
+            ("host", "host", 0.25, 0)]:
+        monkeypatch.setattr(tiling, "SCENE_CACHE_HBM_FRACTION", fraction)
+        sel = [[(run + str(b) + s[0],) + s[1:] for s in stats]
+               for b in (1, 2, 3)]
+        res = tilingstats.calcPerSegmentStatsTiledMultiBand(
+            imgpath, [1, 2, 3], segpath, sel, numReadWorkers=workers,
+            engine=engine, device="cuda")
+        assert ("compaction" in res.timings.makeSummaryDict()) == (
+            run == "scene")
+        names.append([s[0] for band in sel for s in band])
+    scene, tiles, host = (_rat_cols(segpath, n) for n in names)
+    for a, b, c in zip(scene, tiles, host):
+        np.testing.assert_array_equal(a, c)
+        np.testing.assert_array_equal(b, c)
+
+
+@pytest.mark.parametrize("four", [True, False])
+def test_spatial_box_functions_on_card_match_cpu(four):
+    need_cuda()
+    from pyshepseg_tpu_torch.ops import spatialstats as sps
+    rng = np.random.default_rng(9)
+    masks = torch.from_numpy(rng.random((6, 64, 128)) < 0.7)
+    vals = torch.from_numpy(rng.integers(0, 3000, size=(6, 64, 128)).astype(
+        np.float32))
+    assert torch.equal(sps.edge_pixel_counts(masks.cuda(), four).cpu(),
+                       sps.edge_pixel_counts(masks, four))
+    cnt_g, sum_g = sps.variogram_sums(vals.cuda(), masks.cuda(), 4)
+    cnt_c, sum_c = sps.variogram_sums(vals, masks, 4)
+    assert torch.equal(cnt_g.cpu(), cnt_c)
+    # float32 sums in another order: PARITY.md deviation 6 (~1e-5)
+    np.testing.assert_allclose(sum_g.cpu().numpy(), sum_c.numpy(),
+                               rtol=1e-5)
+
+
+def test_spatial_device_engine_on_card_matches_cpu(tmp_path):
+    """Edge pixels and variograms through the device engine's box
+    functions on the card equal the CPU run."""
+    need_cuda()
+    from pyshepseg_tpu_torch import io as rio, tilingstats
+    segpath, imgpath = _stats_rasters(tmp_path)
+    for device in ("cuda", "cpu"):
+        tilingstats.calcPerSegmentSpatialStatsTiled(
+            imgpath, 1, segpath, [("e_" + device, rio.GFT_Integer)],
+            tilingstats.userFuncNumEdgePixels, True, engine="device",
+            device=device)
+        tilingstats.calcPerSegmentSpatialStatsTiled(
+            imgpath, 1, segpath, [("v1_" + device, rio.GFT_Real),
+                                  ("v2_" + device, rio.GFT_Real)],
+            tilingstats.userFuncVariogram, 2, engine="device",
+            device=device)
+    e_g, e_c, v_g, v_c = _rat_cols(segpath, ["e_cuda", "e_cpu", "v2_cuda",
+                                             "v2_cpu"])
+    np.testing.assert_array_equal(e_g, e_c)
+    np.testing.assert_allclose(v_g, v_c, rtol=1e-5, atol=1e-3)

@@ -221,14 +221,17 @@ def test_run_seg_sharded_raises(monkeypatch):
 
 def test_tiled_path_and_cli_never_import_jax(tmp_path):
     """A fresh interpreter runs a tiny tiled segmentation (CONC_NONE and
-    the 3-phase API) and the run_seg CLI on the CPU with
-    PYSHEPSEG_TPU_PLATFORM set; neither JAX nor the JAX package may be
-    imported, and the CLI's output must equal doShepherdSegmentation's."""
+    the 3-phase API), the stats pass on both engines, and the run_seg,
+    tiling and variograms CLIs on the CPU with PYSHEPSEG_TPU_PLATFORM
+    set; neither JAX nor the JAX package may be imported, the run_seg
+    CLI's output must equal doShepherdSegmentation's, and the tiling
+    CLI's stats columns the stats pass's."""
     code = f"""
 import sys
 import numpy as np
-from pyshepseg_tpu_torch import io as rio, shepseg, tiling
-from pyshepseg_tpu_torch.cmdline import run_seg
+from pyshepseg_tpu_torch import io as rio, shepseg, tiling, tilingstats
+from pyshepseg_tpu_torch.cmdline import run_seg, variograms
+from pyshepseg_tpu_torch.cmdline import tiling as tiling_cli
 d = {str(tmp_path)!r}
 rng = np.random.default_rng(0)
 img = (100 + 40 * rng.integers(0, 6, size=(1, 20, 24))).repeat(8, 1)
@@ -256,6 +259,30 @@ want = shepseg.doShepherdSegmentation(
     img, numClusters=6, clusterSubsamplePcnt=100, minSegmentSize=5,
     fixedKMeansInit=True, device='cpu').segimg
 assert (cli == want).all()
+sel = [('m', 'mean'), ('p', 'percentile', 50)]
+for engine in ('device', 'host'):
+    tilingstats.calcPerSegmentStatsTiled(
+        d + '/in.npseg', 2, d + '/tiled.npseg',
+        [(n + engine, *rest) for n, *rest in sel], engine=engine,
+        device='cpu')
+sys.argv = ['tiling', '-i', d + '/in.npseg', '-o', d + '/tcli.npseg',
+            '-n', '6', '-b', '1,2,3', '-s', '5', '-t', '64', '-l', '16',
+            '--fixedkmeansinit', '--statsbands', '2', '--statspec', 'mean',
+            '--statspec', 'percentile,50', '--device', 'cpu']
+tiling_cli.mainCmd()
+def cols(path):
+    rat = rio.open(path).GetRasterBand(1).GetDefaultRAT()
+    return {{rat.GetNameOfCol(i): rat.ReadAsArray(i)
+            for i in range(rat.GetColumnCount())}}
+c, t = cols(d + '/tiled.npseg'), cols(d + '/tcli.npseg')
+assert (c['mdevice'] == c['mhost']).all() and (c['pdevice'] == c['phost']).all()
+assert (t['Band_2_mean'] == c['mhost']).all()
+assert (t['Band_2_pcnt50'] == c['phost']).all()
+rio.open(d + '/in.npseg', rio.GA_Update).GetRasterBand(1).SetNoDataValue(0)
+sys.argv = ['variograms', '-i', d + '/in.npseg', '-s', d + '/tcli.npseg',
+            '-n', '2', '--device', 'cpu']
+variograms.mainCmd()
+assert 'variogram2' in cols(d + '/tcli.npseg')
 assert 'jax' not in sys.modules, 'jax imported'
 assert 'pyshepseg_tpu' not in sys.modules, 'pyshepseg_tpu imported'
 print('ok')
