@@ -9,22 +9,26 @@ doShepherdSegmentation end to end at bench config1 (1024x1024) and at the
 default tile size (4096x4096), each with an A/B of the clump stage's
 two-level merge against the global sweeps (labels equal), then drives
 the tiled driver doTiledShepherdSegmentation over an 8000x8000 scene in 9
-tiles of 4096^2 (serial, two worker threads and the 3-phase API, equal
-bit for bit), serially over a denser 8000x8000 scene (K2 on every tile),
-and over a 1536x1536 scene on the card and on the CPU (equal bit for
-bit); last, doShepherdSegmentation on a noisy 2048x2048 image whose table
-is above K2's staged route, on the card and on the CPU (equal bit for
-bit). Over the 8000x8000 serial output it runs the per-segment statistics
-engine (every statistic on the 4 bands: the device engine from the
-scene-resident feed and from per-tile reads, and the host engine, equal
-bit for bit; the spatial built-ins, device route against host route) and
-the tiling command line end to end (segmentation, stats, colour table).
+tiles of 4096^2 (its k-means fitted twice, equal bit for bit; serial, two
+worker threads and the 3-phase API, equal bit for bit), serially over a
+denser 8000x8000 scene (K2 on every tile), and over a 1536x1536 scene on
+the card and on the CPU (equal bit for bit); then doShepherdSegmentation
+on a noisy 2048x2048 image whose table is above K2's staged route, on the
+card and on the CPU (equal bit for bit). Over the 8000x8000 serial output
+it runs the per-segment statistics engine (every statistic on the 4
+bands: the device engine from the scene-resident feed and from per-tile
+reads, and the host engine, equal bit for bit; the spatial built-ins,
+device route against host route, and the default 'auto', which streams)
+and the tiling command line end to end (segmentation, stats, colour
+table). Last, the golden end-to-end check cmdline.runtests at its
+defaults on the card, and the timing helpers deviceResidentThroughput and
+deviceOnlySeconds at config1.
 
     python3 chip_smoke.py
 
 It imports numpy, torch and the port, nothing of JAX. Every phase raises
-on failure, so the script exits non-zero and prints no result line; it also fails where CUDA is absent or
-the package is missing. The last line of standard output is
+on failure, so the script exits non-zero and prints no result line; it
+also fails where CUDA is absent or the package is missing. The last line of standard output is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 before it come the card's name and power limit as nvidia-smi reports them
 and the per-kernel JSON record (times, bound, plain version and library
@@ -48,9 +52,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from pyshepseg_tpu_torch import _kernels, shepseg, tiling  # noqa: E402
 from pyshepseg_tpu_torch import io as rio, native, tilingstats  # noqa: E402
+from pyshepseg_tpu_torch.cmdline import runtests as runtests_cli  # noqa: E402
 from pyshepseg_tpu_torch.cmdline import tiling as tiling_cli  # noqa: E402
-from pyshepseg_tpu_torch.ops import clump, local_ccl, lut  # noqa: E402
-from pyshepseg_tpu_torch.ops import segstats  # noqa: E402
+from pyshepseg_tpu_torch.ops import clump, kmeans, local_ccl, lut  # noqa: E402
+from pyshepseg_tpu_torch.ops import segreduce, segstats  # noqa: E402
 from pyshepseg_tpu_torch.ops.sync import to_host  # noqa: E402
 from pyshepseg_tpu_torch.timinghooks import Timers  # noqa: E402
 
@@ -529,6 +534,58 @@ def phase_k2_sweep(dev, rng):
                  lut.STAGED_MIN_REUSE, lut.STAGED_MIN_BYTES // 1024))
 
 
+def atomic_sum(size, index, source, dim=0):
+    """A float sum as the port summed before segreduce.index_sum:
+    index_add_, in the order of the card's atomics (the A side of the
+    A/Bs below; the port no longer calls it)."""
+    shape = list(source.shape)
+    shape[dim] = size
+    return torch.zeros(shape, dtype=source.dtype,
+                       device=source.device).index_add_(dim, index, source)
+
+
+def distinct(fn, calls=5):
+    """How many different results ``fn`` gives over ``calls`` calls."""
+    return len({fn().cpu().numpy().tobytes() for _ in range(calls)})
+
+
+def phase_sums(dev):
+    """segreduce.index_sum against index_add_ at the float sums' shapes
+    on the path: ms of each, distinct results over 5 calls, and the
+    largest difference from a float64 sum."""
+    phase("4c order-fixed float sums (segreduce.index_sum) vs index_add_")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    cap = 32768
+    merge_to = torch.where(
+        torch.rand(cap, generator=gen, device=dev) < 0.05,
+        torch.randint(1, cap, (cap,), generator=gen, device=dev), 0)
+    rows = [("k-means sums, 1000000 x 4 float32 into 60", 60,
+             torch.randint(0, 60, (1_000_000,), generator=gen, device=dev),
+             (1_000_000, 4), 2000.0, 0),
+            ("float tile spectral sums, 4096^2 x 4 into 24308", 24308,
+             torch.randint(0, 24308, (4096 * 4096,), generator=gen,
+                           device=dev), (4096 * 4096, 4), 2000.0, 0),
+            ("graph pass sums, 4 x 32768 into 32768", cap, merge_to,
+             (4, cap), 0.0, 1)]
+    for what, size, index, shape, mean, dim in rows:
+        source = mean + 600 * torch.randn(shape, generator=gen, device=dev)
+        fixed = functools.partial(segreduce.index_sum, size, index, source,
+                                  dim)
+        atomic = functools.partial(atomic_sum, size, index, source, dim)
+        want = atomic_sum(size, index, source.double(), dim)
+        err = float((fixed().double() - want).abs().max())
+        n_fixed = distinct(fixed)
+        print("%s: index_add_ %.4f ms (%d distinct results of 5), index_sum "
+              "%.4f ms (%d distinct of 5), largest difference from a "
+              "float64 sum %.3g"
+              % (what, cuda_ms(atomic, reps=10), distinct(atomic),
+                 cuda_ms(fixed, reps=10), n_fixed, err))
+        if n_fixed != 1:
+            raise AssertionError("index_sum: %s differs between calls"
+                                 % what)
+
+
 def tile_clusters(img, km, dev):
     """The cluster image doShepherdSegmentation clumps (int32, null 0)."""
     return shepseg.assign_clusters(
@@ -711,10 +768,11 @@ def report_run(name, wall, npix, timings, peak, ntiles, launches):
              launches, read_routes(), clump.clump_labels.fallbacks, ivals))
 
 
-def scene_file(tmp, h, w, ncells):
+def scene_file(tmp, h, w, ncells, refit=False):
     """Make an (h, w) 4-band scene of ``ncells`` cells, write it as
-    ``.npseg`` and fit k-means to its whole-file subsample on the card.
-    Returns (path, kmeans)."""
+    ``.npseg`` and fit k-means to its whole-file subsample on the card;
+    with ``refit``, fit it a second time, which must give the same
+    centres bit for bit. Returns (path, kmeans)."""
     t0 = time.time()
     img = make_scene(h, w, 4, ncells=ncells)
     inpath = os.path.join(tmp, "scene%d.npseg" % ncells)
@@ -726,6 +784,40 @@ def scene_file(tmp, h, w, ncells):
     print("scene of %d cells made, written and k-means fitted on the card "
           "(%.1f%% subsample, %d iterations) in %.1f s"
           % (ncells, pcnt, km.n_iter_, time.time() - t0))
+    if refit:
+        # in turns with the atomic sums the port had before (atomic,
+        # order-fixed, atomic): the order-fixed fits must be equal
+        fits = {}
+        for sums in ("atomic", "fixed", "atomic"):
+            kmeans.index_sum = (atomic_sum if sums == "atomic" else
+                                segreduce.index_sum)
+            try:
+                t0 = time.time()
+                again, _, _ = tiling.fitSpectralClustersWholeFile(
+                    inDs, [1, 2, 3, 4], 60, None, None, True,
+                    device="cuda")
+                wall = time.time() - t0
+            finally:
+                kmeans.index_sum = segreduce.index_sum
+            fits.setdefault(sums, []).append(again)
+            print("k-means refit with %s sums: %.3f s, %d iterations"
+                  % (sums, wall, again.n_iter_))
+        again = fits["fixed"][0]
+        if (not np.array_equal(km.cluster_centers_, again.cluster_centers_)
+                or (km.inertia_, km.n_iter_) != (again.inertia_,
+                                                 again.n_iter_)):
+            raise AssertionError(
+                "k-means: two fits of the scene differ in %d centre values "
+                "(inertia %r / %r, iterations %d / %d)"
+                % ((km.cluster_centers_ != again.cluster_centers_).sum(),
+                   km.inertia_, again.inertia_, km.n_iter_, again.n_iter_))
+        a, b = fits["atomic"]
+        print("k-means: the order-fixed fits' centres, inertia and %d "
+              "iterations equal bit for bit; the atomic fits' centres "
+              "differ in %d values (%d / %d iterations)"
+              % (again.n_iter_, (a.cluster_centers_ !=
+                                 b.cluster_centers_).sum(),
+                 a.n_iter_, b.n_iter_))
     if not tiling.DeviceSceneCache.fitsOnDevice(inDs, [1, 2, 3, 4], "cuda"):
         raise AssertionError("tiled: the scene does not fit the cache")
     return inpath, km
@@ -763,7 +855,7 @@ def phase_tiled(tmp):
     # 4000 cells: with k-means fitted to the whole scene, a 4096^2 tile
     # of this scene has 16-27 K clumps (15000 cells give 51-60 K, see
     # phase_tiled_dense)
-    inpath, km = scene_file(tmp, h, w, 4000)
+    inpath, km = scene_file(tmp, h, w, 4000, refit=True)
     runs = {}
     for name, cfg in [
             ("serial", tiling.SegmentationConcurrencyConfig(
@@ -972,18 +1064,32 @@ def run_stats_phase(scene, segpath, nodata):
           % (len(names["scene"]), int(seg.max()), nodata, nulls))
 
     # the spatial built-ins on band 1: the device engine's box functions
-    # against the host engine's halo streaming
+    # against the host engine's halo streaming, and the default 'auto',
+    # which must stream on the card and so equal the host's bit for bit
+    band1 = rio.open(scene).GetRasterBand(1)
+    for fn, param in [(tilingstats.userFuncNumEdgePixels, True),
+                      (tilingstats.userFuncVariogram, 3)]:
+        if tilingstats._spatialRoute("auto", fn, param, "cuda",
+                                     band1)[1] is None:
+            raise AssertionError("spatial: 'auto' on the card does not "
+                                 "stream %s" % fn.__name__)
+    engines = ("device", "host", "auto")
     edge = {e: spatial_run("edge pixels", scene, segpath,
                            [("edge_" + e, rio.GFT_Integer)],
                            tilingstats.userFuncNumEdgePixels, True, e, npix)
-            for e in ("device", "host")}
+            for e in engines}
     if not np.array_equal(edge["device"][0], edge["host"][0]):
         raise AssertionError("spatial: edge pixels differ, device vs host")
     vario = {e: spatial_run("variogram maxDist 3", scene, segpath,
                             [("v%d_%s" % (d, e), rio.GFT_Real)
                              for d in (1, 2, 3)],
                             tilingstats.userFuncVariogram, 3, e, npix)
-             for e in ("device", "host")}
+             for e in engines}
+    for a, h in zip(edge["auto"] + vario["auto"], edge["host"] +
+                    vario["host"]):
+        if not np.array_equal(a, h):
+            raise AssertionError("spatial: 'auto' differs from the host's "
+                                 "streaming route")
     worst = 0.0
     for dv, hv in zip(vario["device"], vario["host"]):
         # float32 accumulation order (PARITY.md deviation 6)
@@ -1004,9 +1110,10 @@ def run_stats_phase(scene, segpath, nodata):
                             "host", npix)
     for dv, hv in zip(mean_dev, mean_host):
         np.testing.assert_allclose(dv, hv, rtol=1e-5, atol=1e-2)
-    print("spatial: edge pixels device == host; variograms within rtol "
-          "1e-5 (largest relative difference %.3g); mean coordinates, "
-          "float32 device vs float64 host, within atol 1e-2 px" % worst)
+    print("spatial: edge pixels device == host == auto; variograms auto == "
+          "host, device within rtol 1e-5 (largest relative difference "
+          "%.3g); mean coordinates, float32 device vs float64 host, within "
+          "atol 1e-2 px" % worst)
 
 
 def phase_cli(tmp, scene):
@@ -1200,6 +1307,55 @@ def phase_dense_memory(dev):
              routes))
 
 
+def phase_runtests(dev):
+    """The golden end-to-end check, cmdline.runtests, in-process on the
+    card at its defaults (1000^2, 101 Voronoi centres, tile 512 / overlap
+    128): it must exit 0 with every oracle holding, and launch K1 and K2.
+    Then the two timing helpers of the shepseg API at config1. Returns
+    the launches."""
+    phase("11 runtests on the card at its defaults, timing helpers")
+    saved = sys.argv
+    with tempfile.TemporaryDirectory() as tmp:
+        sys.argv = ["pyshepseg_tpu_torch_runtests", "-d", tmp,
+                    "--device", "cuda"]
+        reset_counts()
+        t0 = time.time()
+        try:
+            runtests_cli.mainCmd()
+            raise AssertionError("runtests: returned without an exit code")
+        except SystemExit as exit_info:
+            code = exit_info.code
+        finally:
+            sys.argv = saved
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = read_counts()
+    print("runtests --device cuda: exit %s, wall %.3f s, launches %s, K2 by "
+          "route %s, two-level fallbacks %d"
+          % (code, wall, launches, read_routes(),
+             clump.clump_labels.fallbacks))
+    if code != 0:
+        raise AssertionError("runtests: exit code %r" % (code,))
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError("runtests: %s never launched" % name)
+
+    img = make_image(1024, 1024, 4, device=dev)
+    km = shepseg.fitSpectralClusters(img, 60, 1, None, True, device=dev)
+    args = (img, km, "auto", CONFIG1["minSegmentSize"],
+            CONFIG1["fourConnected"])
+    mpix = shepseg.deviceResidentThroughput(*args)
+    secs, rtt = shepseg.deviceOnlySeconds(*args)
+    for v in (mpix, secs, rtt):
+        if not (np.isfinite(v) and v > 0):
+            raise AssertionError("timing helpers: %r, %r, %r"
+                                 % (mpix, secs, rtt))
+    print("config1 timing helpers: deviceResidentThroughput %.3f Mpix/s "
+          "(%.4f s a call), deviceOnlySeconds %.4f s a run (k 8), sync "
+          "round trip %.6f s" % (mpix, 1.048576 / mpix, secs, rtt))
+    return launches
+
+
 def main():
     kind, smi = phase_device()
     dev = torch.device("cuda")
@@ -1208,6 +1364,7 @@ def main():
     phase_k1(dev, rng)
     graph_pass = phase_k2(dev, rng)
     phase_k2_sweep(dev, rng)
+    phase_sums(dev)
     config1_launches, records = phase_config1(dev)
     phase_tile(dev)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1218,8 +1375,10 @@ def main():
         phase_tiled_dense(tmp)
         phase_tiled_cpu(tmp)
     phase_dense_memory(dev)
+    runtests_launches = phase_runtests(dev)
     print("config1 launches (in-memory path):", config1_launches)
     print("tiling CLI launches (phase 10):", cli_launches)
+    print("runtests launches (phase 11):", runtests_launches)
     graph_pass["shape"] = "graph pass, 72000 int32 from 24000 int64"
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], launches=launches[name],

@@ -17,11 +17,11 @@ package reads what the other writes.
 """
 
 from .raster import (  # noqa: F401
-    open, create, isNumpyDriverPath,
+    open, create, createCopyStructure, isNumpyDriverPath,
     GDT_Byte, GDT_UInt16, GDT_Int16, GDT_UInt32, GDT_Int32,
     GDT_Float32, GDT_Float64,
     GFT_Integer, GFT_Real, GFT_String,
     GFU_Generic, GFU_PixelCount, GFU_Name, GFU_Red, GFU_Green, GFU_Blue,
     GFU_Alpha,
     GA_ReadOnly, GA_Update,
-    gdalTypeFromNumpy, HAVE_GDAL)
+    gdalTypeFromNumpy, numpyTypeFromGdal, HAVE_GDAL)

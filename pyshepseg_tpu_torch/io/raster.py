@@ -66,10 +66,15 @@ _NP_TO_GDT = {
     np.dtype(np.float32): GDT_Float32,
     np.dtype(np.float64): GDT_Float64,
 }
+_GDT_TO_NP = {v: k for k, v in _NP_TO_GDT.items()}
 
 
 def gdalTypeFromNumpy(dtype):
     return _NP_TO_GDT[np.dtype(dtype)]
+
+
+def numpyTypeFromGdal(gdt):
+    return _GDT_TO_NP[int(gdt)]
 
 
 NUMPY_DRIVER_EXT = ".npseg"
@@ -536,4 +541,21 @@ def create(path, xsize, ysize, nbands, dtype, driverName=None,
     return drvr.Create(path, xsize, ysize, nbands,
                        gdalTypeFromNumpy(dtype),
                        creationOptions or [])
+
+
+def createCopyStructure(path, likeDs, nbands=None, dtype=None,
+                        driverName=None, creationOptions=None):
+    """Create a raster shaped like an existing one, copying geo metadata."""
+    nbands = nbands if nbands is not None else likeDs.RasterCount
+    if dtype is None:
+        dtype = numpyTypeFromGdal(likeDs.GetRasterBand(1).DataType)
+    ds = create(path, likeDs.RasterXSize, likeDs.RasterYSize, nbands,
+                dtype, driverName, creationOptions)
+    gt = likeDs.GetGeoTransform()
+    if gt is not None:
+        ds.SetGeoTransform(gt)
+    proj = likeDs.GetProjection()
+    if proj:
+        ds.SetProjection(proj)
+    return ds
 

@@ -10,12 +10,14 @@ Public surface:
 - ``flood_fill_clump(img, ignoreVal, fourConnected, maxClumpSize, clumpId)``
   — reference-parity scan-order flood fill
   (reference: pyshepseg/shepseg.py:452-541 incl. the MAX_CLUMP_SIZE cap).
+- ``subset_recode(tile, mask, lut, nextId, hist)`` — first-encounter dense
+  recode (reference: pyshepseg/subset.py:367-424).
 - ``stitch_mapping(tileData, mapping, recoded, start_id, top, bottom,
   left, right)`` — the per-tile stitch relabel's counting and id
   assignment (reference: pyshepseg/tiling.py:1231-1290); returns None
   when the library is unavailable and the caller runs its numpy path.
 
-Both have fallbacks, so the package works without a compiler.
+All have fallbacks, so the package works without a compiler.
 """
 
 import os
@@ -62,6 +64,11 @@ def _build_and_load():
             ctypes.POINTER(ctypes.c_int32), ctypes.c_int64, ctypes.c_int64,
             ctypes.c_int32, ctypes.c_int32, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32]
+        lib.subset_recode.restype = ctypes.c_uint32
+        lib.subset_recode.argtypes = [
+            ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8),
+            ctypes.c_int64, ctypes.POINTER(ctypes.c_uint32), ctypes.c_uint32,
+            ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32)]
         lib.stitch_mapping.restype = ctypes.c_uint32
         lib.stitch_mapping.argtypes = [
             ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64, ctypes.c_int64,
@@ -158,3 +165,49 @@ def stitch_mapping(tileData, mapping, recoded, start_id,
         mapping.shape[0], int(start_id),
         _ptr(cnt, ctypes.c_uint32))
     return int(newMax), cnt
+
+
+def subset_recode(tile, mask, lut, nextId, hist):
+    """
+    First-encounter dense recode of one tile (scan order). ``lut`` (uint32,
+    len maxOldId+1, 0 = unassigned) and ``hist`` (uint64 pixel counts by
+    new id) are updated in place. Returns (outTile, nextId).
+    """
+    # updated in place through raw pointers: reject any other layout
+    for arr, dtype in ((lut, np.uint32), (hist, np.uint64)):
+        if arr.dtype != dtype or not arr.flags.c_contiguous:
+            raise TypeError("lut and hist must be C-contiguous uint32 and "
+                            f"uint64 arrays; got {lut.dtype}, {hist.dtype}")
+    tile = np.ascontiguousarray(tile, dtype=np.uint32)
+    out = np.empty_like(tile)
+    n = tile.size
+    lib = _build_and_load()
+    if mask is not None:
+        # Nonzero-ness in the ORIGINAL dtype — a plain uint8 cast would
+        # wrap values like 256 to 0 and silently drop kept pixels
+        mask = np.ascontiguousarray(np.asarray(mask) != 0, dtype=np.uint8)
+    if lib is not None:
+        maskp = (ctypes.POINTER(ctypes.c_uint8)() if mask is None else
+                 _ptr(mask, ctypes.c_uint8))
+        nxt = lib.subset_recode(
+            _ptr(tile, ctypes.c_uint32), maskp, n,
+            _ptr(lut, ctypes.c_uint32), int(nextId),
+            _ptr(hist, ctypes.c_uint64), _ptr(out, ctypes.c_uint32))
+        return out.reshape(tile.shape), int(nxt)
+    # Python fallback
+    flat = tile.ravel()
+    outf = out.ravel()
+    maskf = None if mask is None else mask.ravel()
+    for i in range(n):
+        v = flat[i]
+        if v == 0 or (maskf is not None and maskf[i] == 0):
+            outf[i] = 0
+            continue
+        nid = lut[v]
+        if nid == 0:
+            nid = nextId
+            lut[v] = nid
+            nextId += 1
+        outf[i] = nid
+        hist[nid] += 1
+    return out.reshape(tile.shape), int(nextId)

@@ -1,11 +1,16 @@
 // Native host loops for the order-dependent sequential parts of the port
-// (counterpart: pyshepseg_tpu/native/ccl.cpp, whose two functions used by
-// the port are carried over unchanged):
+// (counterpart: pyshepseg_tpu/native/ccl.cpp, whose three functions used
+// by the port are carried over unchanged):
 //
 // - flood_fill_clump: scan-order flood-fill connected-component labelling
 //   with the reference's MAX_CLUMP_SIZE cap semantics (reference:
 //   pyshepseg/shepseg.py:452-541). The cap's split geometry depends on the
 //   flood fill's stack order, so it is inherently sequential.
+//
+// - subset_recode: first-encounter dense re-labelling used by
+//   subset.subsetImage (reference: pyshepseg/subset.py:367-424). The new
+//   ID of a segment is determined by which of its pixels is seen first in
+//   global scan order across tiles — a strictly sequential dependence.
 //
 // - stitch_mapping: the tiled stitch's per-tile window count and
 //   ascending owned-id assignment (reference: pyshepseg/tiling.py:
@@ -71,6 +76,30 @@ uint32_t flood_fill_clump(const int32_t *img, int64_t h, int64_t w,
         }
     }
     return clumpId;
+}
+
+// tile: (n,) uint32 old segment ids in scan order; mask: optional (n,)
+// uint8 (0 = drop pixel); lut: (maxOldId + 1,) uint32, 0 = unassigned,
+// updated in place; hist: (capacity,) uint64 new-id pixel counts, updated
+// in place; out: (n,) uint32. Returns the next unused new id.
+uint32_t subset_recode(const uint32_t *tile, const uint8_t *mask, int64_t n,
+                       uint32_t *lut, uint32_t nextId, uint64_t *hist,
+                       uint32_t *out) {
+    for (int64_t i = 0; i < n; ++i) {
+        const uint32_t v = tile[i];
+        if (v == 0 || (mask != nullptr && mask[i] == 0)) {
+            out[i] = 0;
+            continue;
+        }
+        uint32_t nid = lut[v];
+        if (nid == 0) {
+            nid = nextId++;
+            lut[v] = nid;
+        }
+        out[i] = nid;
+        ++hist[nid];
+    }
+    return nextId;
 }
 
 // Per-tile stitch relabel, without the full-tile gather:

@@ -38,7 +38,7 @@ from . import lut
 from .constants import SegIdType, SEGNULLVAL, MINSEGID
 from .shifts import shift, offsets_for
 from .segreduce import (seg_sizes, seg_spectral_sums, relabel,
-                        relabel_subtract, image_tensor)
+                        relabel_subtract, image_tensor, index_sum)
 from .sync import to_host, masked
 
 # "no neighbour" in the best-neighbour reduction (above any segment id)
@@ -143,13 +143,13 @@ def _merge_pass_edges(ids2, remap, size, sums, target: int, max_diff_sqr):
         remap_new = merge_map[remap]
 
     # merges commute (targets are never candidates): move each mover's
-    # size and sums onto its target; non-movers add zeros to row 0
+    # size and sums onto its target; non-movers add zeros to row 0. Float
+    # sums add in a fixed order on the card (segreduce.index_sum)
     moved_size = torch.where(move, size, 0)
     moved_sums = torch.where(move[None], sums, 0)
-    size_new = size - moved_size + torch.zeros_like(size).index_add_(
-        0, merge_to, moved_size)
-    sums_new = sums - moved_sums + torch.zeros_like(sums).index_add_(
-        1, merge_to, moved_sums)
+    size_new = size - moved_size + index_sum(capacity, merge_to, moved_size)
+    sums_new = sums - moved_sums + index_sum(capacity, merge_to, moved_sums,
+                                             dim=1)
     return remap_new, size_new, sums_new, move.sum()
 
 

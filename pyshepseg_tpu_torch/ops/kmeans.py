@@ -7,7 +7,10 @@ squared Euclidean distance but avoids the float32 cancellation of
 |x|^2 - 2x.c + |c|^2. The product runs in full float32, never TF32: at
 16-bit imagery magnitudes (scores ~1e8) reduced precision exceeds the
 inter-cluster score margins and makes Lloyd's diverge (see the JAX
-package's _assign_scores).
+package's _assign_scores). The per-cluster sums go through
+segreduce.index_sum, whose float sums on the card are order-fixed: the
+same points and initial centres give the same fit bit for bit on every
+run, as the JAX package promises for a fixed init.
 
 :class:`TorchKMeans` mimics the slice of sklearn's KMeans the reference
 uses (``fit``, ``predict``, ``cluster_centers_``, ``n_clusters``,
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from .constants import SEGNULLVAL, MINSEGID
+from .segreduce import index_sum
 from .. import _kernels
 
 
@@ -90,9 +94,9 @@ def _lloyd(x, centers, tol_scaled, max_iter: int):
     shift = float("inf")
     while (shift > tol_scaled or had_empty) and it < max_iter:
         labels, mind = _assign(x, c)
-        sums = torch.zeros_like(c).index_add_(0, labels, x)
-        counts = torch.zeros(k, dtype=x.dtype, device=x.device).index_add_(
-            0, labels, torch.ones_like(mind))
+        # order-fixed on the card: a fixed init gives the same fit every run
+        sums = index_sum(k, labels, x)
+        counts = index_sum(k, labels, torch.ones_like(mind))
         new_c = sums / torch.clamp(counts, min=1.0)[:, None]
         empty = counts == 0
         # one host sync an iteration; while clusters are empty the loop

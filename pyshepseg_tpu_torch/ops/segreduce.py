@@ -7,8 +7,10 @@ independent of the order of the additions, atomics on the card included.
 They become float32 only where a mean is taken. While a segment's sum is
 below 2^24 this equals the JAX package's float32 sums bit for bit; above
 it, it is the exact value where float32 accumulation rounds. Float imagery
-is summed in float32, in an order that may differ from run to run on the
-card.
+is summed in float32 through :func:`index_sum`: serially in pixel order
+on the CPU, and on the card in a fixed order of its own, so one input
+gives the same bits on every run (they may differ from the CPU's in the
+last place).
 
 The JAX package's run-length variants stand in for the TPU's serial
 scatters and are not ported.
@@ -19,6 +21,61 @@ import torch
 
 from .. import _kernels
 from .constants import SegIdType, MINSEGID
+
+
+def index_sum(size: int, index, source, dim: int = 0):
+    """
+    ``torch.zeros(...).index_add_(dim, index, source)`` into ``size`` bins
+    along ``dim``, whose float result does not depend on the order of the
+    card's atomics. On the CPU (a serial add in index order) and for
+    integer sums (exact in any order) it is that call; a float sum on the
+    card is :func:`fixed_order_index_sum`.
+    """
+    if source.device.type != "cuda" or not source.is_floating_point():
+        shape = list(source.shape)
+        shape[dim] = size
+        return torch.zeros(shape, dtype=source.dtype,
+                           device=source.device).index_add_(dim, index,
+                                                            source)
+    return fixed_order_index_sum(size, index, source, dim)
+
+
+def fixed_order_index_sum(size: int, index, source, dim: int = 0):
+    """
+    The sums of the slices of ``source`` along ``dim`` into ``size`` bins
+    by ``index``, with no atomics and no host sync: a stable sort by
+    index, then a segmented inclusive scan (Hillis-Steele: ceil(log2 n)
+    rounds, each adding the partial sum ``step`` places back where that
+    lies in the same run), whose last element of each run holds the run's
+    sum and is written to its bin. Every op is order-fixed, so equal
+    inputs give equal bits on any device.
+    """
+    keys, order = torch.sort(index.reshape(-1).long(), stable=True)
+    rows = source.movedim(dim, 0)
+    n, tail = keys.shape[0], tuple(rows.shape[1:])
+    out = rows.new_zeros((size + 1,) + tail)
+    if n:
+        # two buffers of 2n rows whose first n stay zero, so the partial
+        # sums ``step`` places back are the view buf[n - step:2n - step]
+        bufs = rows.new_zeros((2, 2 * n) + tail)
+        torch.index_select(rows, 0, order, out=bufs[0, n:])
+        # each element's place in its run (its key's first index, by a
+        # binary search of the sorted keys)
+        pos = torch.arange(n, device=keys.device) - torch.searchsorted(
+            keys, keys)
+        pos = pos.view((n,) + (1,) * len(tail))
+        cur, step = 0, 1
+        while step < n:
+            prev = bufs[cur]
+            torch.add(prev[n:], torch.where(pos >= step,
+                                            prev[n - step:2 * n - step], 0),
+                      out=bufs[1 - cur, n:])
+            cur, step = 1 - cur, step * 2
+        # the runs' last elements to their bins, every other to bin ``size``
+        last = torch.ones(n, dtype=torch.bool, device=keys.device)
+        last[:-1] = keys[1:] != keys[:-1]
+        out.index_copy_(0, torch.where(last, keys, size), bufs[cur, n:])
+    return out[:size].movedim(0, dim).contiguous()
 
 
 def seg_sizes(seg, capacity: int):
@@ -73,8 +130,7 @@ def seg_spectral_sums_planes(seg, band_planes, capacity: int):
     flat = seg.reshape(-1).long()
     dtype = _sum_dtype(band_planes[0])
     vals = torch.stack([p.reshape(-1).to(dtype) for p in band_planes], dim=1)
-    return torch.zeros((capacity, len(band_planes)), dtype=dtype,
-                       device=seg.device).index_add_(0, flat, vals)
+    return index_sum(capacity, flat, vals)
 
 
 def seg_sizes_and_spectral_sums_planes(seg, band_planes, capacity: int):

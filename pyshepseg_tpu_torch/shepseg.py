@@ -169,6 +169,116 @@ def doShepherdSegmentation(img, numClusters=60, clusterSubsamplePcnt=1,
     return segResult
 
 
+def _elapsed(fn, device):
+    """Seconds taken by ``fn()``: CUDA events around it on a CUDA device
+    (recorded on the current stream and waited for), time.perf_counter
+    elsewhere."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record(stream)
+    fn()
+    end.record(stream)
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def _warmSegmentation(img, kmeansObj, maxSpectralDiff, minSegmentSize,
+                      fourConnected, imgNullVal, device):
+    """(device, run): the image placed on ``device`` in its own dtype, and
+    a call of doShepherdSegmentation on it with the fitted ``kmeansObj``,
+    run once so that the kernels are built and the caches warm."""
+    device = _kernels.torch_device(device)
+    img_dev = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+
+    def run():
+        return doShepherdSegmentation(
+            img_dev, minSegmentSize=minSegmentSize,
+            maxSpectralDiff=maxSpectralDiff, imgNullVal=imgNullVal,
+            fourConnected=fourConnected, kmeansObj=kmeansObj, device=device)
+
+    run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return device, run
+
+
+def deviceResidentThroughput(img, kmeansObj, maxSpectralDiff,
+                             minSegmentSize=50, fourConnected=True,
+                             imgNullVal=None, repeats=3, device="cuda"):
+    """
+    Throughput (Mpix/s) of the warm segmentation pipeline, the best of
+    ``repeats`` calls: the image is placed on ``device`` and the k-means
+    model fitted before timing starts, so the figure excludes the image's
+    upload and the clustering fit (counterpart:
+    pyshepseg_tpu.shepseg.deviceResidentThroughput, same signature plus
+    ``device``). Each timed call is one doShepherdSegmentation, timed with
+    CUDA events on the card and time.perf_counter elsewhere. It includes
+    the call's own host syncs (the graph loop decides on the host after
+    every pass) and the copy of the segment image back to the host, which
+    doShepherdSegmentation returns as numpy; the JAX package's figure
+    times one speculative dispatch and a scalar fetch instead, and none of
+    its capacity-bucket or one-shot logic exists here.
+    """
+    h, w = np.shape(img)[1:]
+    device, run = _warmSegmentation(img, kmeansObj, maxSpectralDiff,
+                                    minSegmentSize, fourConnected,
+                                    imgNullVal, device)
+    best = min(_elapsed(run, device) for _ in range(repeats))
+    return (h * w / 1e6) / best
+
+
+def deviceOnlySeconds(img, kmeansObj, maxSpectralDiff, minSegmentSize=50,
+                      fourConnected=True, imgNullVal=None, k=8,
+                      repeats=3, device="cuda"):
+    """
+    Seconds per warm segmentation run, with one sync round trip taken out
+    (counterpart: pyshepseg_tpu.shepseg.deviceOnlySeconds, same signature
+    plus ``device``). ``k`` doShepherdSegmentation calls on the image
+    placed on ``device`` run back to back, timed as one window (CUDA
+    events on the card, time.perf_counter elsewhere); the best of
+    ``repeats`` windows, less the sync round trip, over ``k``.
+
+    Unlike the JAX package's single dispatch, the port's call has host
+    syncs inside it (the graph loop's passes), so the device does NOT run
+    the ``k`` calls without a sync between them: the figure is the warm
+    call's wall per run, the copy of its segment image to the host
+    included. The sync round trip is the best of 5 launches of a tiny
+    kernel followed by a synchronize.
+
+    Returns (device_seconds_per_run, sync_rtt_seconds).
+    """
+    device, run = _warmSegmentation(img, kmeansObj, maxSpectralDiff,
+                                    minSegmentSize, fourConnected,
+                                    imgNullVal, device)
+    tiny = torch.zeros((8, 128), dtype=torch.float32, device=device)
+
+    def bump():
+        tiny.add_(1.0)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    bump()
+    rtts = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        bump()
+        rtts.append(time.perf_counter() - t0)
+    rtt = min(rtts)
+
+    def window():
+        for _ in range(k):
+            run()
+
+    best = min(_elapsed(window, device) for _ in range(repeats))
+    return max(best - rtt, 0.0) / k, rtt
+
+
 def fitSpectralClusters(img, numClusters, subsamplePcnt, imgNullVal,
         fixedKMeansInit, device="cuda"):
     """

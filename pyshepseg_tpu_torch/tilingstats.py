@@ -689,7 +689,8 @@ def _resolveStatsEngine(engine, imgband, device):
     'device' (the torch sort-based run compaction of ops/segstats.py on
     ``device``, a CPU device included), or 'auto' (the device engine when
     ``device`` is a CUDA device and the imagery dtype's values fit the
-    sort key; host otherwise).
+    sort key; host otherwise). ``device`` may be a torch.device or a
+    string: only its type is read, so nothing here touches CUDA.
     """
     if engine not in ('auto', 'host', 'device'):
         raise PyShepSegStatsError(
@@ -705,7 +706,34 @@ def _resolveStatsEngine(engine, imgband, device):
                 "engine='device' does not support imagery dtype "
                 f"{sampleDtype} (values may not fit int32)")
         return True
-    return supported and device.type == 'cuda'
+    return supported and torch.device(device).type == 'cuda'
+
+
+def _spatialRoute(engine, userFunc, userParam, device, imgband):
+    """
+    The route of calcPerSegmentSpatialStatsTiled: (useDevice, streamFn).
+    ``useDevice`` is _resolveStatsEngine's answer; ``streamFn`` is the
+    streaming reduction that stands in for ``userFunc``, or None for the
+    per-segment point lists. Every engine streams userFuncMeanCoord and
+    any StreamingSpatialUserFunc. 'host' and 'auto' also stream
+    userFuncNumEdgePixels (1-pixel halo) and userFuncVariogram for
+    maxDist <= 8 (maxDist halo), on every device: on the card the box
+    route's host point lists cost more than the halo route saves. Only an
+    explicit engine='device' takes these two to the box functions. Past
+    maxDist 8 the per-tile offset sweep outgrows the box functions, so
+    large distances keep the point lists. ``device`` may be a string.
+    """
+    useDevice = _resolveStatsEngine(engine, imgband, device)
+    if isinstance(userFunc, StreamingSpatialUserFunc):
+        return useDevice, userFunc
+    if userFunc is userFuncMeanCoord:
+        return useDevice, streamingMeanCoord(userParam)
+    if engine != 'device':
+        if userFunc is userFuncNumEdgePixels:
+            return useDevice, streamingNumEdgePixels(userParam)
+        if userFunc is userFuncVariogram and int(userParam) <= 8:
+            return useDevice, streamingVariogram(userParam)
+    return useDevice, None
 
 
 def _sceneFitsDeviceStats(nlines, npix, nBands, device):
@@ -2005,19 +2033,18 @@ def calcPerSegmentSpatialStatsTiled(imgfile, imgbandnum, segfile,
 
     ``numReadWorkers`` works as in :func:`calcPerSegmentStatsTiled`.
 
-    ``engine='device'`` (or 'auto' with a CUDA ``device``, see
-    _resolveStatsEngine) evaluates the BUILT-IN user functions
-    (userFuncVariogram, userFuncNumEdgePixels) and every
-    :class:`DeviceSpatialUserFunc` as batched torch functions on
-    ``device`` over padded per-segment bounding boxes
-    (ops/spatialstats.py); other callbacks and userFuncMeanCoord always
-    run on the host. ``device`` is "cuda" by default, which raises where
-    CUDA is absent. On the host engine
-    every built-in streams instead of accumulating point lists:
-    userFuncMeanCoord always, userFuncNumEdgePixels through the
-    1-pixel-halo tile route (:func:`streamingNumEdgePixels`), and
-    userFuncVariogram through a maxDist-halo route for maxDist <= 8
-    (:func:`streamingVariogram`).
+    The route is :func:`_spatialRoute`'s. On 'host' and 'auto', on every
+    device, every built-in streams instead of accumulating point lists:
+    userFuncMeanCoord, userFuncNumEdgePixels through the 1-pixel-halo
+    tile route (:func:`streamingNumEdgePixels`), and userFuncVariogram
+    through a maxDist-halo route for maxDist <= 8
+    (:func:`streamingVariogram`). ``engine='device'`` evaluates
+    userFuncNumEdgePixels and userFuncVariogram as batched torch
+    functions on ``device`` over padded per-segment bounding boxes
+    (ops/spatialstats.py); every :class:`DeviceSpatialUserFunc` runs so
+    on the device engine ('device', or 'auto' with a CUDA ``device``, see
+    _resolveStatsEngine). Other callbacks run on the host. ``device`` is
+    "cuda" by default, which raises where CUDA is absent.
     """
     device = _kernels.torch_device(device)
     numReadWorkers = _defaultReadWorkers(numReadWorkers, segfile)
@@ -2041,26 +2068,10 @@ def calcPerSegmentSpatialStatsTiled(imgfile, imgbandnum, segfile,
     (numIntCols, numFloatCols, userColFast) = createUserColumnsSpatial(
         colNamesAndTypes, attrTbl, existingColNames)
 
-    # Streaming-reduction fast path: a StreamingSpatialUserFunc never
-    # materializes per-segment coordinate lists (userFuncMeanCoord is
-    # substituted automatically — its statistic is a pure reduction).
-    useDevice = _resolveStatsEngine(engine, imgband, device)
-    streamFn = userFunc if isinstance(userFunc,
-                                      StreamingSpatialUserFunc) else None
-    if streamFn is None and userFunc is userFuncMeanCoord:
-        streamFn = streamingMeanCoord(userParam)
-    if streamFn is None and userFunc is userFuncNumEdgePixels \
-            and not useDevice:
-        # the host engine streams edge counts through the halo route;
-        # engine='device' keeps the batched DeviceSpatialUserFunc box
-        # functions
-        streamFn = streamingNumEdgePixels(userParam)
-    if streamFn is None and userFunc is userFuncVariogram \
-            and not useDevice and int(userParam) <= 8:
-        # variograms stream too (halo = maxDist); past maxDist 8 the
-        # per-tile offset sweep outgrows the point route's box kernels,
-        # so large distances keep the accumulator path
-        streamFn = streamingVariogram(userParam)
+    # A streaming reduction never materializes per-segment coordinate
+    # lists (see _spatialRoute)
+    useDevice, streamFn = _spatialRoute(engine, userFunc, userParam, device,
+                                        imgband)
 
     if streamFn is not None:
         acc = _StreamingSpatialAccumulator(numSeg, imgNullVal, streamFn)

@@ -90,6 +90,76 @@ def test_variograms_cli_matches_jax(scene, tmp_path, monkeypatch):
     assert np.isfinite(cols["variogram1"][1:]).all()
 
 
+@pytest.fixture
+def run_seg_output(scene, tmp_path, monkeypatch):
+    """tests/test_cmdline.py's subset input: the scene segmented by the
+    port's run_seg CLI (on the CPU)."""
+    from pyshepseg_tpu_torch.cmdline import run_seg
+    segpath = str(tmp_path / "seg.npseg")
+    run_cli(monkeypatch, run_seg, [
+        "-i", scene, "-o", segpath, "-n", "20", "-b", "1,2,3", "-s", "10",
+        "-m", "30", "-c", "10", "--fixedkmeansinit", "--device", "cpu"])
+    return segpath
+
+
+@pytest.mark.parametrize("window", [
+    ["--srcwin", "20", "30", "64", "48", "--origsegidcol", "orig"],
+    ["--srcwin", "10", "10", "32", "32"],
+    # geotransform (0, 10, 0, 0, 0, -10): pixel (10, 10) -> (100, -100)
+    ["--projwin", "100", "-100", "420", "-420"],
+    ["--mask"]])
+def test_subset_cli_matches_jax(run_seg_output, tmp_path, monkeypatch,
+                                window):
+    """The subset CLI by pixel window, projected window and mask: raster
+    and every RAT column equal to the JAX CLI's."""
+    from pyshepseg_tpu.cmdline import subset as jax_subset_cli
+    from pyshepseg_tpu_torch.cmdline import subset as subset_cli
+    if window == ["--mask"]:
+        # a 64 x 48 mask on the segmentation's grid at pixel (20, 30)
+        mask = str(tmp_path / "mask.npseg")
+        ds = rio.create(mask, 64, 48, 1, np.uint8)
+        ds.SetGeoTransform((200.0, 10.0, 0.0, -300.0, 0.0, -10.0))
+        ds.SetProjection("FAKE_PROJ")
+        ds.GetRasterBand(1).WriteArray(
+            (np.random.default_rng(3).random((48, 64)) < 0.7).astype(
+                np.uint8))
+        ds.FlushCache()
+        window = ["--mask", mask, "--origsegidcol", "orig"]
+    got, want = str(tmp_path / "got.npseg"), str(tmp_path / "want.npseg")
+    run_cli(monkeypatch, subset_cli,
+            ["-i", run_seg_output, "-o", got] + window)
+    run_cli(monkeypatch, jax_subset_cli,
+            ["-i", run_seg_output, "-o", want] + window)
+    sub, cols = rat_of(got)
+    wsub, wcols = rat_of(want)
+    np.testing.assert_array_equal(sub, wsub)
+    assert sub.max() >= 1 and list(cols) == list(wcols)
+    for name in cols:
+        np.testing.assert_array_equal(cols[name], wcols[name], err_msg=name)
+    assert (tuple(rio.open(got).GetGeoTransform()) ==
+            tuple(rio.open(want).GetGeoTransform()))
+    if "orig" in cols:
+        full = rio.open(run_seg_output).GetRasterBand(1).ReadAsArray()
+        nz = sub != 0
+        assert (cols["orig"][sub[nz]] == full[30:78, 20:84][nz]).all()
+
+
+def test_runtests_cli_on_cpu(tmp_path, monkeypatch, capsys):
+    """The golden end-to-end check at a small size on the CPU: every
+    oracle holds."""
+    from pyshepseg_tpu_torch.cmdline import runtests
+    with pytest.raises(SystemExit) as exit_info:
+        run_cli(monkeypatch, runtests, [
+            "-d", str(tmp_path), "--device", "cpu", "--size", "160",
+            "--ncentres", "12", "--tilesize", "96", "--overlapsize", "24"])
+    out = capsys.readouterr().out
+    assert exit_info.value.code == 0, out
+    assert out.strip().splitlines()[-1] == "All tests passed"
+    for line in ("Spectral match: 100.0000%", "Spatial stats ok: True",
+                 "Streaming spatial routes ok: True", "Subset ok: True"):
+        assert line in out, out
+
+
 def test_tiling_cli_mesh_not_ported(scene, tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="CONC_MESH"):
         run_cli(monkeypatch, tiling_cli, [

@@ -479,3 +479,81 @@ def test_spatial_device_engine_on_card_matches_cpu(tmp_path):
                                              "v2_cpu"])
     np.testing.assert_array_equal(e_g, e_c)
     np.testing.assert_allclose(v_g, v_c, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("fixed", [True, False])
+def test_kmeans_fit_on_card_is_reproducible(fixed):
+    """Two fits of the same points on the card, fixed init or k-means++
+    from one seed, give centres equal bit for bit (the per-cluster float
+    sums are order-fixed), and inertia and iterations equal too."""
+    need_cuda()
+    from pyshepseg_tpu_torch.ops import kmeans
+    rng = np.random.default_rng(12)
+    centres = rng.uniform(0, 4000, size=(60, 4))
+    x = (centres[rng.integers(0, 60, size=300000)] +
+         rng.normal(0, 40, size=(300000, 4))).astype(np.float32)
+    init = shepseg.diagonalClusterCentres(x, 60) if fixed else "k-means++"
+    fits = [kmeans.TorchKMeans(n_clusters=60, n_init=1 if fixed else 2,
+                               init=init, random_state=3,
+                               device="cuda").fit(x) for _ in range(2)]
+    assert np.array_equal(fits[0].cluster_centers_,
+                          fits[1].cluster_centers_)
+    assert fits[0].inertia_ == fits[1].inertia_
+    assert fits[0].n_iter_ == fits[1].n_iter_ > 1
+
+
+def test_float_image_segments_the_same_twice_on_card():
+    """A float32 image, its k-means fitted inside each call: two calls on
+    the card give the same segimg (order-fixed k-means, spectral and
+    graph-pass sums)."""
+    need_cuda()
+    img, _ = voronoi_image(np.random.default_rng(6), shape=(768, 640),
+                           ncentres=300, noise=60)
+    img = img.astype(np.float32) + np.float32(0.37)
+    kw = dict(numClusters=30, clusterSubsamplePcnt=50, minSegmentSize=30,
+              fixedKMeansInit=True, device="cuda")
+    a = shepseg.doShepherdSegmentation(img, **kw)
+    b = shepseg.doShepherdSegmentation(img, **kw)
+    assert a.smallSegmentsEliminated > 0
+    np.testing.assert_array_equal(a.kmeans.cluster_centers_,
+                                  b.kmeans.cluster_centers_)
+    np.testing.assert_array_equal(a.segimg, b.segimg)
+
+
+def test_timing_helpers_on_card():
+    need_cuda()
+    img, _ = voronoi_image(np.random.default_rng(2), shape=(256, 256))
+    km = shepseg.fitSpectralClusters(img, 12, 100, None, True,
+                                     device="cuda")
+    mpix = shepseg.deviceResidentThroughput(img, km, 'auto', repeats=2)
+    secs, rtt = shepseg.deviceOnlySeconds(img, km, 'auto', k=2, repeats=2)
+    for v in (mpix, secs, rtt):
+        assert np.isfinite(v) and v > 0
+
+
+def test_spatial_auto_streams_on_card(tmp_path):
+    """'auto' on the card takes the halo streaming route for the two
+    built-ins and writes the box route's columns (edges exact, variograms
+    rtol 1e-5)."""
+    need_cuda()
+    from pyshepseg_tpu_torch import io as rio, tilingstats
+    segpath, imgpath = _stats_rasters(tmp_path)
+    band = rio.open(imgpath).GetRasterBand(1)
+    for fn, param in [(tilingstats.userFuncNumEdgePixels, True),
+                      (tilingstats.userFuncVariogram, 2)]:
+        useDevice, streamFn = tilingstats._spatialRoute(
+            "auto", fn, param, "cuda", band)
+        assert useDevice and streamFn is not None
+    for engine in ("auto", "device"):
+        tilingstats.calcPerSegmentSpatialStatsTiled(
+            imgpath, 1, segpath, [("e_" + engine, rio.GFT_Integer)],
+            tilingstats.userFuncNumEdgePixels, True, engine=engine)
+        tilingstats.calcPerSegmentSpatialStatsTiled(
+            imgpath, 1, segpath, [("v1_" + engine, rio.GFT_Real),
+                                  ("v2_" + engine, rio.GFT_Real)],
+            tilingstats.userFuncVariogram, 2, engine=engine)
+    e_a, e_d, v_a, v_d = _rat_cols(segpath, ["e_auto", "e_device", "v2_auto",
+                                             "v2_device"])
+    np.testing.assert_array_equal(e_a, e_d)
+    np.testing.assert_array_equal(v_a == -9999, v_d == -9999)
+    np.testing.assert_allclose(v_a, v_d, rtol=1e-5, atol=1e-3)

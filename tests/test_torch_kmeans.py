@@ -10,7 +10,7 @@ import jax.numpy as jnp
 
 from pyshepseg_tpu.ops import kmeans as jax_kmeans
 from pyshepseg_tpu import shepseg as jax_shepseg
-from pyshepseg_tpu_torch.ops import kmeans
+from pyshepseg_tpu_torch.ops import kmeans, segreduce
 from pyshepseg_tpu_torch import shepseg
 from torch_parity import voronoi_image
 
@@ -189,3 +189,96 @@ def test_host_helpers_match_jax(rng):
     for setting in ('auto', None, 42.0):
         assert (shepseg.autoMaxSpectralDiff(FakeKM(), setting, 50) ==
                 jax_shepseg.autoMaxSpectralDiff(FakeKM(), setting, 50))
+
+
+# ------------------------------------------- order-fixed float sums
+# On the CPU index_sum is index_add_ itself (a serial add in index order),
+# so every CPU result pinned above is unchanged. The card's float route,
+# fixed_order_index_sum, is torch ops that run on the CPU as well: these
+# tests hold its arithmetic there.
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int64])
+@pytest.mark.parametrize("dim", [0, 1])
+def test_index_sum_on_cpu_is_index_add(rng, dtype, dim):
+    idx = torch.from_numpy(rng.integers(0, 9, size=500))
+    src = torch.from_numpy(rng.normal(0, 1e4, size=(500, 3))).to(dtype)
+    if dim == 1:
+        src = src.T.contiguous()
+    shape = (9, 3) if dim == 0 else (3, 9)
+    want = torch.zeros(shape, dtype=dtype).index_add_(dim, idx, src)
+    got = segreduce.index_sum(9, idx, src, dim=dim)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n,k", [(0, 4), (1, 4), (2, 1), (7, 3), (1000, 1),
+                                 (1000, 13), (4097, 4096), (3000, 60)])
+@pytest.mark.parametrize("dim", [0, 1])
+def test_fixed_order_index_sum(rng, n, k, dim):
+    """Exact for integer-valued floats (every order gives the same sum),
+    float32-close for any values, the same bits on a second call, and
+    empty bins stay 0."""
+    idx = torch.from_numpy(rng.integers(0, k, size=n))
+    for vals in (rng.integers(-1000, 1000, size=(n, 4)),
+                 rng.normal(0, 100, size=(n, 4))):
+        src = torch.from_numpy(vals.astype(np.float32))
+        if dim == 1:
+            src = src.T.contiguous()
+        shape = (k, 4) if dim == 0 else (4, k)
+        want = torch.zeros(shape).index_add_(dim, idx, src)
+        got = segreduce.fixed_order_index_sum(k, idx, src, dim)
+        again = segreduce.fixed_order_index_sum(k, idx, src, dim)
+        assert torch.equal(got, again)
+        if vals.dtype.kind == "i":
+            assert torch.equal(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                       atol=1e-2)
+
+
+def _card_sums(monkeypatch, *modules):
+    """Route index_sum through the card's float algorithm on the CPU."""
+    plain = segreduce.index_sum
+
+    def fixed(size, index, source, dim=0):
+        if not source.is_floating_point():
+            return plain(size, index, source, dim)
+        return segreduce.fixed_order_index_sum(size, index, source, dim)
+    for mod in modules:
+        monkeypatch.setattr(mod, "index_sum", fixed)
+
+
+def test_fit_with_card_sums_matches_jax(rng, monkeypatch):
+    """The fixed-init fit through the card's order-fixed sums against the
+    JAX package's fit (rtol 1e-4, as test_fixed_init_fit_matches_jax)."""
+    _card_sums(monkeypatch, kmeans)
+    x = _blob_data(rng)
+    init = jax_shepseg.diagonalClusterCentres(x, 4)
+    want = jax_kmeans.TPUKMeans(n_clusters=4, n_init=1, init=init).fit(x)
+    got = kmeans.TorchKMeans(n_clusters=4, n_init=1, init=init,
+                             device="cpu").fit(x)
+    np.testing.assert_allclose(got.cluster_centers_, want.cluster_centers_,
+                               rtol=1e-4)
+    assert got.n_iter_ == want.n_iter_
+
+
+def test_float_image_with_card_sums_matches_jax(rng, monkeypatch):
+    """A float32 image of integer values (every segment sum exact in any
+    order) segments to the JAX package's segimg through the card's float
+    sums, in the spectral sums and in the graph passes."""
+    from pyshepseg_tpu_torch.ops import elim_small
+    img, _ = voronoi_image(rng, shape=(64, 72), noise=60)
+    img = img.astype(np.float32)
+    km = jax_shepseg.fitSpectralClusters(img, 8, 100, None, True)
+    kw = dict(numClusters=8, minSegmentSize=20, maxSpectralDiff=None)
+    want = jax_shepseg.doShepherdSegmentation(img, kmeansObj=km, **kw)
+    plain = shepseg.doShepherdSegmentation(
+        img, kmeansObj=kmeans.kmeansFromReference(km, device="cpu"),
+        device="cpu", **kw)
+    _card_sums(monkeypatch, segreduce, elim_small)
+    got = shepseg.doShepherdSegmentation(
+        img, kmeansObj=kmeans.kmeansFromReference(km, device="cpu"),
+        device="cpu", **kw)
+    assert got.smallSegmentsEliminated > 0
+    np.testing.assert_array_equal(got.segimg, want.segimg)
+    np.testing.assert_array_equal(plain.segimg, want.segimg)

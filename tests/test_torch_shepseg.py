@@ -88,3 +88,22 @@ def test_port_never_imports_jax():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
 
+
+def test_timing_helpers_on_cpu():
+    """deviceResidentThroughput and deviceOnlySeconds time the warm call
+    with time.perf_counter off the card: finite, positive, and the call
+    they time (a uint16 tensor on the device, the given k-means) gives
+    the numpy call's segimg."""
+    img, _ = voronoi_image(np.random.default_rng(4), shape=(48, 56))
+    km = shepseg.fitSpectralClusters(img, 8, 100, None, True, device="cpu")
+    mpix = shepseg.deviceResidentThroughput(img, km, 'auto', 10,
+                                            repeats=2, device="cpu")
+    secs, rtt = shepseg.deviceOnlySeconds(img, km, 'auto', 10, k=2,
+                                          repeats=2, device="cpu")
+    for v in (mpix, secs, rtt):
+        assert np.isfinite(v) and v > 0
+    a = shepseg.doShepherdSegmentation(torch.from_numpy(img), kmeansObj=km,
+                                       minSegmentSize=10, device="cpu")
+    b = shepseg.doShepherdSegmentation(img, kmeansObj=km, minSegmentSize=10,
+                                       device="cpu")
+    np.testing.assert_array_equal(a.segimg, b.segimg)

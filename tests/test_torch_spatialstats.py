@@ -415,3 +415,39 @@ def test_spatial_dict_compat_matches_jax(rng):
     np.testing.assert_array_equal(got.floatcols[:, 1:5],
                                   want.floatcols[:, 1:5])
     assert (got.floatcols[:, 2] == -9999).all()
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_auto_streams_builtins_on_every_device(tmp_path, rng, device):
+    """The route is chosen from the device's name alone, so "cuda" is
+    asked here without a card: 'auto' and 'host' stream edge pixels and
+    variograms up to maxDist 8 on every device (the device engine still
+    serves custom torch functions on a CUDA device), and only an explicit
+    'device' takes the two built-ins to the box functions."""
+    _, imgpath, _, _ = make_seg_and_img(tmp_path, rng, shape=(20, 20),
+                                        nseg=3)
+    band = rio.open(imgpath).GetRasterBand(1)
+    route = tilingstats._spatialRoute
+    onCuda = device == "cuda"
+    for engine in ("auto", "host"):
+        wantDevice = engine == "auto" and onCuda
+        for fn, param, halo in [(tilingstats.userFuncNumEdgePixels, True, 1),
+                                (tilingstats.userFuncVariogram, 8, 8),
+                                (tilingstats.userFuncMeanCoord,
+                                 np.zeros(6), 0)]:
+            useDevice, streamFn = route(engine, fn, param, device, band)
+            assert useDevice == wantDevice
+            assert isinstance(streamFn, tilingstats.StreamingSpatialUserFunc)
+            assert streamFn.haloPixels == halo
+        assert route(engine, tilingstats.userFuncVariogram, 9, device,
+                     band) == (wantDevice, None)
+        custom = tilingstats.DeviceSpatialUserFunc(_masked_mean_torch)
+        assert route(engine, custom, 2.0, device, band) == (wantDevice, None)
+    for fn, param in [(tilingstats.userFuncNumEdgePixels, True),
+                      (tilingstats.userFuncVariogram, 3)]:
+        assert route("device", fn, param, device, band) == (True, None)
+    useDevice, streamFn = route("device", tilingstats.userFuncMeanCoord,
+                                np.zeros(6), device, band)
+    assert useDevice and streamFn is not None
+    with pytest.raises(tilingstats.PyShepSegStatsError):
+        route("gpu", tilingstats.userFuncNumEdgePixels, True, device, band)

@@ -221,16 +221,20 @@ def test_run_seg_sharded_raises(monkeypatch):
 
 def test_tiled_path_and_cli_never_import_jax(tmp_path):
     """A fresh interpreter runs a tiny tiled segmentation (CONC_NONE and
-    the 3-phase API), the stats pass on both engines, and the run_seg,
-    tiling and variograms CLIs on the CPU with PYSHEPSEG_TPU_PLATFORM
-    set; neither JAX nor the JAX package may be imported, the run_seg
-    CLI's output must equal doShepherdSegmentation's, and the tiling
-    CLI's stats columns the stats pass's."""
+    the 3-phase API), the stats pass on both engines, subsetImage, and
+    the run_seg, tiling, variograms, subset and runtests CLIs on the CPU
+    with PYSHEPSEG_TPU_PLATFORM set; neither JAX nor the JAX package may
+    be imported, the run_seg CLI's output must equal
+    doShepherdSegmentation's, the tiling CLI's stats columns the stats
+    pass's, the subset CLI's output subsetImage's, and runtests must
+    exit 0."""
     code = f"""
 import sys
 import numpy as np
-from pyshepseg_tpu_torch import io as rio, shepseg, tiling, tilingstats
-from pyshepseg_tpu_torch.cmdline import run_seg, variograms
+from pyshepseg_tpu_torch import io as rio, shepseg, subset, tiling
+from pyshepseg_tpu_torch import tilingstats
+from pyshepseg_tpu_torch.cmdline import run_seg, runtests, variograms
+from pyshepseg_tpu_torch.cmdline import subset as subset_cli
 from pyshepseg_tpu_torch.cmdline import tiling as tiling_cli
 d = {str(tmp_path)!r}
 rng = np.random.default_rng(0)
@@ -283,6 +287,19 @@ sys.argv = ['variograms', '-i', d + '/in.npseg', '-s', d + '/tcli.npseg',
             '-n', '2', '--device', 'cpu']
 variograms.mainCmd()
 assert 'variogram2' in cols(d + '/tcli.npseg')
+subset.subsetImage(d + '/tcli.npseg', d + '/sub.npseg', 8, 4, 48, 40, None,
+                   origSegIdColName='orig')
+sys.argv = ['subset', '-i', d + '/tcli.npseg', '-o', d + '/subcli.npseg',
+            '--srcwin', '8', '4', '48', '40', '--origsegidcol', 'orig']
+subset_cli.mainCmd()
+s, c = cols(d + '/sub.npseg'), cols(d + '/subcli.npseg')
+assert all((s[k] == c[k]).all() for k in s) and s.keys() == c.keys()
+sys.argv = ['runtests', '-d', d, '--device', 'cpu', '--size', '100',
+            '--ncentres', '8', '--tilesize', '64', '--overlapsize', '16']
+try:
+    runtests.mainCmd()
+except SystemExit as e:
+    assert e.code == 0, e.code
 assert 'jax' not in sys.modules, 'jax imported'
 assert 'pyshepseg_tpu' not in sys.modules, 'pyshepseg_tpu imported'
 print('ok')
