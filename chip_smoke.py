@@ -20,9 +20,17 @@ bands: the device engine from the scene-resident feed and from per-tile
 reads, and the host engine, equal bit for bit; the spatial built-ins,
 device route against host route, and the default 'auto', which streams)
 and the tiling command line end to end (segmentation, stats, colour
-table). Last, the golden end-to-end check cmdline.runtests at its
+table). Then the golden end-to-end check cmdline.runtests at its
 defaults on the card, and the timing helpers deviceResidentThroughput and
-deviceOnlySeconds at config1.
+deviceOnlySeconds at config1. Phase 12 drives the multi-device backends
+on the one card, each where its inputs are at hand: 12a
+pipeline.segment_tile on the 4096x4096 tile (labels equal to
+doShepherdSegmentation's, timed beside it), 12b CONC_MESH over the
+8000x8000 scene with tilesPerDevice 1 and 2 (equal to the serial output),
+12c the row-sharded clump and segmentation of the tile over a device list
+that names cuda:0 four times, and once (equal to clump and to 12a), 12d
+two processes of the dcnworkercmd command line over the 1536x1536 scene
+through a TCPStore on localhost (equal to the serial run).
 
     python3 chip_smoke.py
 
@@ -32,7 +40,8 @@ also fails where CUDA is absent or the package is missing. The last line of stan
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}};
 before it come the card's name and power limit as nvidia-smi reports them
 and the per-kernel JSON record (times, bound, plain version and library
-call), whose launch counts are those of the serial tiled run.
+call), whose launch counts are those of the serial tiled run plus phase
+12's paths, each counted from 0.
 """
 
 import contextlib
@@ -56,6 +65,9 @@ from pyshepseg_tpu_torch.cmdline import runtests as runtests_cli  # noqa: E402
 from pyshepseg_tpu_torch.cmdline import tiling as tiling_cli  # noqa: E402
 from pyshepseg_tpu_torch.ops import clump, kmeans, local_ccl, lut  # noqa: E402
 from pyshepseg_tpu_torch.ops import segreduce, segstats  # noqa: E402
+from pyshepseg_tpu_torch.parallel import mesh, pipeline  # noqa: E402
+from pyshepseg_tpu_torch.parallel import shardmap_clump  # noqa: E402
+from pyshepseg_tpu_torch.parallel import shardmap_seg  # noqa: E402
 from pyshepseg_tpu_torch.ops.sync import to_host  # noqa: E402
 from pyshepseg_tpu_torch.timinghooks import Timers  # noqa: E402
 
@@ -736,6 +748,7 @@ def phase_tile(dev):
     print("4096^2 warm wall, two-level %s s, sweeps %s s; segimg equal"
           % (["%.3f" % x for x in got[True]],
              ["%.3f" % x for x in got[False]]))
+    return img, km, seg
 
 
 def check_mosaic(seg, hist, maxSegId, hasEmpty, npix, what):
@@ -849,7 +862,8 @@ def phase_tiled(tmp):
     """8000^2 scene, default tile 4096 / overlap 1024 (uniform grid: 3x3
     tiles of 4096^2), config1's settings. Serial with the scene cache,
     two worker threads, and the 3-phase API must agree bit for bit.
-    Returns the serial run's launch counts."""
+    Returns the serial run's launch counts, the scene's path, the serial
+    output's path and the scene's k-means."""
     phase("7 tiled, 8000x8000 scene, default tile")
     h = w = 8000
     # 4000 cells: with k-means fitted to the whole scene, a 4096^2 tile
@@ -914,7 +928,7 @@ def phase_tiled(tmp):
     print("tiled 8000^2: serial == threads == 3-phase bit for bit; %d "
           "segments, no empty ids, histogram sums to %d"
           % (runs["serial"][1], hist0.sum()))
-    return serial, inpath, runs["serial"][0]
+    return serial, inpath, runs["serial"][0], km
 
 
 # every statistic the engine has, on every band (phase 9)
@@ -1268,6 +1282,7 @@ def phase_tiled_cpu(tmp):
                              "pixels" % (seg_g != seg_c).sum())
     print("tiled 1536^2: card == CPU bit for bit (raster, histogram, "
           "maxSegId %d)" % max_g)
+    return inpath, os.path.join(tmp, "small_cuda.npseg")
 
 
 def phase_dense_memory(dev):
@@ -1356,6 +1371,260 @@ def phase_runtests(dev):
     return launches
 
 
+def add_counts(total, counts):
+    for name, n in counts.items():
+        total[name] = total.get(name, 0) + n
+
+
+def need_launches(what, counts, names=("local_ccl", "lut_gather")):
+    for name in names:
+        if counts[name] == 0:
+            raise AssertionError("%s: %s never launched" % (what, name))
+
+
+def phase_segment_tile(dev, img, km, seg6):
+    """12a: pipeline.segment_tile at tile4096 with the image on the card
+    already: labels == phase 6's doShepherdSegmentation bit for bit; warm
+    seconds by CUDA events beside the same call with the download.
+    Returns (the segment image on the card, launches)."""
+    phase("12a pipeline.segment_tile, 4096x4096 tile on the card")
+    img_dev = torch.from_numpy(img).to(dev)
+    centers = torch.tensor(np.asarray(km.cluster_centers_, np.float32),
+                           device=dev)
+    maxdiff = float(shepseg.autoMaxSpectralDiff(km, 'auto', 50))
+
+    def tile():
+        return pipeline.segment_tile(img_dev, centers, 0, maxdiff,
+                                     CONFIG1["minSegmentSize"], True, False)
+
+    def with_download():
+        return shepseg.doShepherdSegmentation(img_dev, kmeansObj=km,
+                                              device=dev, **CONFIG1)
+
+    reset_counts()
+    seg, maxid = tile()
+    torch.cuda.synchronize()
+    launches, syncs = read_counts(), to_host.syncs
+    if not (seg.is_cuda and maxid.is_cuda):
+        raise AssertionError("segment_tile: result left the card")
+    if not np.array_equal(seg.cpu().numpy().view(np.uint32), seg6):
+        raise AssertionError("segment_tile: labels differ from "
+                             "doShepherdSegmentation's")
+    if int(maxid) != int(seg6.max()):
+        raise AssertionError("segment_tile: maxSegId %d, not %d"
+                             % (int(maxid), int(seg6.max())))
+    need_launches("segment_tile", launches)
+    with_download()
+    times = {"tile": [], "download": []}
+    for _ in range(3):
+        times["tile"].append(shepseg._elapsed(tile, dev))
+        times["download"].append(shepseg._elapsed(with_download, dev))
+    print("segment_tile 4096^2: labels == phase 6 bit for bit, %d segments, "
+          "%d host syncs, launches %s; warm CUDA-event seconds %s, the same "
+          "through doShepherdSegmentation (with the download) %s"
+          % (int(maxid), syncs, launches,
+             ["%.4f" % t for t in times["tile"]],
+             ["%.4f" % t for t in times["download"]]))
+    return seg, launches
+
+
+def phase_mesh(tmp, inpath, km, serial_out):
+    """12b: CONC_MESH over scene8000, tilesPerDevice 1 and 2, in turns
+    with CONC_NONE: output == phase 7's serial output bit for bit, every
+    pixel labelled, K1 once and K2 at least once a tile, no two-level
+    fallback. Returns the mesh runs' launches."""
+    phase("12b CONC_MESH, 8000x8000 scene, tilesPerDevice 1 and 2")
+    h = w = 8000
+    seg0, hist0 = read_seg(serial_out)
+    per_tile = []
+    segment = mesh.segment_tile
+
+    def counted(*args, **kwargs):
+        before = (local_ccl.local_ccl_blocks.launches,
+                  lut.lut_gather.launches)
+        result = segment(*args, **kwargs)
+        per_tile.append((local_ccl.local_ccl_blocks.launches - before[0],
+                         lut.lut_gather.launches - before[1]))
+        return result
+
+    total = {}
+    mesh.segment_tile = counted
+    try:
+        for name, cfg in [
+                ("serial again", tiling.SegmentationConcurrencyConfig(
+                    deviceSceneCache=True)),
+                ("mesh tpd 1", tiling.SegmentationConcurrencyConfig(
+                    concurrencyType=tiling.CONC_MESH, tilesPerDevice=1,
+                    deviceSceneCache=True)),
+                ("mesh tpd 2", tiling.SegmentationConcurrencyConfig(
+                    concurrencyType=tiling.CONC_MESH, tilesPerDevice=2,
+                    deviceSceneCache=True))]:
+            del per_tile[:]
+            out = os.path.join(tmp, "mesh.npseg")
+            res, launches = tiled_run(name, inpath, out, km, cfg, h * w)
+            seg, hist = read_seg(out)
+            check_mosaic(seg, hist, res.maxSegId, res.hasEmptySegments,
+                         h * w, name)
+            if (not np.array_equal(seg, seg0) or
+                    not np.array_equal(hist, hist0)):
+                raise AssertionError("%s differs from phase 7's serial "
+                                     "output at %d pixels"
+                                     % (name, (seg != seg0).sum()))
+            if name.startswith("mesh"):
+                if (launches["local_ccl"] != 9 or len(per_tile) != 9 or
+                        min(k2 for _, k2 in per_tile) < 1 or
+                        any(k1 != 1 for k1, _ in per_tile)):
+                    raise AssertionError("%s: launches %s, per tile %s"
+                                         % (name, launches, per_tile))
+                add_counts(total, launches)
+                print("%s: == serial bit for bit, K1/K2 launches per tile "
+                      "%s" % (name, per_tile))
+    finally:
+        mesh.segment_tile = segment
+    return total
+
+
+def reset_sharded_counts():
+    reset_counts()
+    shardmap_clump.exchange_rows.rows = 0
+    shardmap_clump._clump_sharded.sweeps = 0
+    shardmap_seg._single_pixel_sharded.passes = 0
+
+
+def phase_sharded(dev, img, km, seg12a):
+    """12c: the row-sharded clump and the row-sharded full pipeline on the
+    tile4096 image over ["cuda:0"] * 4 and over ["cuda:0"]: == clump and ==
+    12a's labels bit for bit; sweeps, halo rows moved, host syncs, wall.
+    Returns the sharded segmentations' launches."""
+    phase("12c row-sharded clump and segmentation, 4096x4096, 4 stripes "
+          "and 1 on one card")
+    clusters = tile_clusters(img, km, dev).cpu().numpy()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    want, nxt = clump.clump(clusters, 0, True, device="cuda")
+    clump_wall = time.time() - t0
+    centers = np.asarray(km.cluster_centers_, np.float32)
+    maxdiff = float(shepseg.autoMaxSpectralDiff(km, 'auto', 50))
+    want_seg = seg12a.cpu().numpy().view(np.uint32)
+    total = {}
+    for stripes in (4, 1):
+        devices = ["cuda:0"] * stripes
+        reset_sharded_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        got, num = shardmap_clump.clump_sharded(clusters, 0, True,
+                                                mesh=devices)
+        wall = time.time() - t0
+        sweeps = shardmap_clump._clump_sharded.sweeps
+        if not np.array_equal(got, want) or num != nxt - 1:
+            raise AssertionError("clump_sharded over %d stripes differs "
+                                 "from clump" % stripes)
+        if to_host.syncs != sweeps + 1:
+            raise AssertionError("clump_sharded: %d host syncs for %d "
+                                 "sweeps" % (to_host.syncs, sweeps))
+        print("clump_sharded, %d stripes: == clump bit for bit, %d clumps, "
+              "%d sweeps, %d halo rows moved, %d host syncs, wall %.3f s "
+              "(clump: %.3f s), peak %.1f MiB"
+              % (stripes, num, sweeps, shardmap_clump.exchange_rows.rows,
+                 to_host.syncs, wall, clump_wall,
+                 torch.cuda.max_memory_allocated() / 2 ** 20))
+
+        reset_sharded_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        seg, maxid = shardmap_seg.segment_image_sharded(
+            img, centers, maxSpectralDiff=maxdiff,
+            minSegmentSize=CONFIG1["minSegmentSize"], fourConnected=True,
+            mesh=devices)
+        wall = time.time() - t0
+        launches = read_counts()
+        if not np.array_equal(seg, want_seg) or maxid != int(want_seg.max()):
+            raise AssertionError("segment_image_sharded over %d stripes "
+                                 "differs from segment_tile at %d pixels"
+                                 % (stripes, (seg != want_seg).sum()))
+        need_launches("segment_image_sharded", launches, ("lut_gather",))
+        add_counts(total, launches)
+        print("segment_image_sharded, %d stripes: == segment_tile bit for "
+              "bit, %d segments, %d clump sweeps, %d single-pixel passes, "
+              "%d halo rows moved, %d host syncs, launches %s, wall %.3f s, "
+              "peak %.1f MiB"
+              % (stripes, maxid, shardmap_clump._clump_sharded.sweeps,
+                 shardmap_seg._single_pixel_sharded.passes,
+                 shardmap_clump.exchange_rows.rows, to_host.syncs, launches,
+                 wall, torch.cuda.max_memory_allocated() / 2 ** 20))
+    return total
+
+
+# one DCN worker: the command line's entry point, then its launch counts
+DCN_WORKER = """
+import json, sys
+from pyshepseg_tpu_torch.cmdline import dcnworkercmd
+from pyshepseg_tpu_torch.ops import local_ccl, lut
+dcnworkercmd.mainCmd()
+print("LAUNCHES", json.dumps({
+    "local_ccl": local_ccl.local_ccl_blocks.launches,
+    "lut_gather": lut.lut_gather.launches}))
+"""
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_dcn(tmp, inpath, serial_out):
+    """12d: two dcnworkercmd processes on the card over phase 8's 1536^2
+    scene, through a TCPStore on localhost: the output equals that scene's
+    serial run; both exit 0. Returns the two processes' launches."""
+    phase("12d two dcnworkercmd processes on the card, 1536x1536 scene")
+    work = os.path.join(tmp, "dcnwork")
+    os.makedirs(work)
+    out = os.path.join(work, "dcn.npseg")
+    coord = "localhost:%d" % free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", DCN_WORKER, "-i", inpath, "-o", out, "-w",
+         work, "--coordinator", coord, "--numprocesses", "2", "--procid",
+         str(pid), "-t", "1024", "-l", "256", "-m",
+         str(TILED["minSegmentSize"]), "-n", str(TILED["numClusters"]),
+         "--fixedkmeansinit", "--device", "cuda"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=root) for pid in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.time() - t0
+    total = {}
+    for pid, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError("dcn: process %d exited %d:\n%s\n%s"
+                                 % (pid, p.returncode, stdout, stderr))
+        line = [ln for ln in stdout.splitlines()
+                if ln.startswith("LAUNCHES")][-1]
+        launches = json.loads(line.split(" ", 1)[1])
+        need_launches("dcn process %d" % pid, launches)
+        add_counts(total, launches)
+    seg, hist = read_seg(out)
+    seg0, hist0 = read_seg(serial_out)
+    if not np.array_equal(seg, seg0) or not np.array_equal(hist, hist0):
+        raise AssertionError("dcn: output differs from the serial run at "
+                             "%d pixels" % (seg != seg0).sum())
+    print("dcn, 2 processes on one card: exit codes 0 0, output == the "
+          "serial run bit for bit (%d segments), launches %s, wall %.3f s"
+          % (int(seg.max()), total, wall))
+    return total
+
+
 def main():
     kind, smi = phase_device()
     dev = torch.device("cuda")
@@ -1366,19 +1635,35 @@ def main():
     phase_k2_sweep(dev, rng)
     phase_sums(dev)
     config1_launches, records = phase_config1(dev)
-    phase_tile(dev)
+    img6, km6, seg6 = phase_tile(dev)
+    # phase 12 runs where its inputs are at hand: 12a and 12c on phase 6's
+    # tile, 12b on phase 7's scene, 12d on phase 8's
+    seg12a, tile_launches = phase_segment_tile(dev, img6, km6, seg6)
+    sharded_launches = phase_sharded(dev, img6, km6, seg12a)
+    del img6, seg6, seg12a
     with tempfile.TemporaryDirectory() as tmp:
-        launches, scene, segpath = phase_tiled(tmp)
+        launches, scene, segpath, km7 = phase_tiled(tmp)
         phase_stats(scene, segpath)
         cli_launches = phase_cli(tmp, scene)
+        mesh_launches = phase_mesh(tmp, scene, km7, segpath)
     with tempfile.TemporaryDirectory() as tmp:
         phase_tiled_dense(tmp)
-        phase_tiled_cpu(tmp)
+        small, small_out = phase_tiled_cpu(tmp)
+        dcn_launches = phase_dcn(tmp, small, small_out)
     phase_dense_memory(dev)
     runtests_launches = phase_runtests(dev)
     print("config1 launches (in-memory path):", config1_launches)
     print("tiling CLI launches (phase 10):", cli_launches)
     print("runtests launches (phase 11):", runtests_launches)
+    phase12 = {"12a segment_tile": tile_launches,
+               "12b CONC_MESH, two runs": mesh_launches,
+               "12c sharded image, two runs": sharded_launches,
+               "12d two DCN processes": dcn_launches}
+    print("phase 12 launches:", phase12)
+    # each path was counted from 0 and read just after it ran; the
+    # record's count is the serial tiled run's plus phase 12's
+    for counts in phase12.values():
+        add_counts(launches, counts)
     graph_pass["shape"] = "graph pass, 72000 int32 from 24000 int64"
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], launches=launches[name],

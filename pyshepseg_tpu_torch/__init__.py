@@ -8,15 +8,18 @@ example ``pyshepseg_tpu_torch.ops.clump.clump_labels`` and
 two Pallas kernels of the JAX package are CUDA C++ kernels for Hopper
 (``csrc/``), built with ``nvcc`` at first use (see :mod:`._kernels`).
 
-Covered so far: in-memory segmentation,
+Covered: in-memory segmentation,
 :func:`pyshepseg_tpu_torch.shepseg.doShepherdSegmentation`; the tiled
 driver :func:`pyshepseg_tpu_torch.tiling.doTiledShepherdSegmentation` with
 its stitch, the CONC_NONE / CONC_THREADS / CONC_SUBPROC / CONC_FARGATE
 backends and the 3-phase API; the per-segment statistics engine
 :mod:`.tilingstats` with its device run compaction (:mod:`.ops.segstats`)
-and spatial box functions (:mod:`.ops.spatialstats`); :mod:`.utils`,
-:mod:`.timinghooks`, and the ``run_seg``, ``tiling``, ``variograms`` and
-segmentation-worker command lines. Every public entry point that
+and spatial box functions (:mod:`.ops.spatialstats`); :mod:`.subset`,
+:mod:`.utils`, :mod:`.timinghooks`; the multi-device backends of
+:mod:`.parallel` (the device-resident tile pipeline, CONC_MESH over a list
+of devices, the row-sharded single image, and the multi-host DCN run); and
+the ``run_seg``, ``tiling``, ``variograms``, ``subset``, ``runtests``,
+segmentation-worker and DCN-worker command lines. Every public entry point that
 computes takes an explicit ``device`` (default ``"cuda"``, which raises
 when CUDA is absent); on a CPU device each kernel wrapper runs its plain
 PyTorch version, and the stats engine's torch ops run on the CPU.

@@ -46,6 +46,28 @@ def torch_device(device):
     return device
 
 
+def cuda_devices():
+    """Every visible CUDA device, ``cuda:0 .. cuda:N-1``: the default of
+    the multi-device entry points. Raises when there is none (the port
+    never moves to the CPU by itself)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no device list given and "
+                           "torch.cuda.is_available() is False")
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def device_list(mesh):
+    """A ``mesh`` argument as a list of torch.devices: a sequence of
+    devices (or their names; one may appear more than once), or None for
+    :func:`cuda_devices`. A CUDA device without CUDA raises."""
+    if mesh is None:
+        return cuda_devices()
+    devices = [torch_device(d) for d in mesh]
+    if not devices:
+        raise ValueError("an empty device list")
+    return devices
+
+
 def _nvcc():
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     path = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
@@ -129,12 +151,12 @@ def check(code, name):
         raise RuntimeError("%s launch failed: CUDA error %d" % (name, code))
 
 
-def count(fn, attr="launches"):
-    """Add one to the counter ``fn.<attr>``. Under a lock: the tiled
-    driver's worker threads launch kernels concurrently, and a bare
-    ``+= 1`` could lose an update."""
+def count(fn, attr="launches", n=1):
+    """Add ``n`` (one by default) to the counter ``fn.<attr>``. Under a
+    lock: the tiled driver's worker threads launch kernels concurrently,
+    and a bare ``+= 1`` could lose an update."""
     with _count_lock:
-        setattr(fn, attr, getattr(fn, attr) + 1)
+        setattr(fn, attr, getattr(fn, attr) + n)
 
 
 def stream_ptr(t):

@@ -13,6 +13,7 @@ import time
 import argparse
 
 import numpy
+import torch
 
 from pyshepseg_tpu_torch import io as rio
 from pyshepseg_tpu_torch import shepseg
@@ -54,9 +55,11 @@ def getCmdargs():
         help="Use a fixed algorithm to select initial cluster centres, "
              "for completely deterministic, reproducible results")
     p.add_argument("--sharded", default=False, action="store_true",
-        help="Shard the image's rows across all local devices (not "
-             "ported yet: the multi-device slice, ROADMAP.md queue 1, "
-             "item 12)")
+        help="Shard the image's rows across the devices and run the "
+             "whole pipeline as one row-sharded segmentation (for single "
+             "images too large for one device; output is identical). "
+             "With --device cuda the devices are every visible CUDA "
+             "device; 'cuda:N' or 'cpu' names the one device to use")
     p.add_argument("--device", default="cuda",
         help="Torch device to segment on: 'cuda' (raises when CUDA is "
              "absent), 'cuda:N' or 'cpu' (default=%(default)s)")
@@ -89,24 +92,29 @@ def getCmdargs():
 
 def mainCmd():
     cmdargs = getCmdargs()
-    if cmdargs.sharded:
-        raise NotImplementedError(
-            "--sharded needs the multi-device backend, which is not ported "
-            "to pyshepseg_tpu_torch yet (ROADMAP.md queue 1, item 12)")
 
     t0 = time.time()
     print("Reading ... ", end='')
     (img, refNull) = readImageBands(cmdargs)
     print(round(time.time() - t0, 1), "seconds")
 
-    segResult = shepseg.doShepherdSegmentation(
+    if cmdargs.sharded:
+        from pyshepseg_tpu_torch.parallel.shardmap_seg import (
+            doShepherdSegmentationSharded)
+        segFunc = doShepherdSegmentationSharded
+        device = torch.device(cmdargs.device)
+        allCards = device.type == 'cuda' and device.index is None
+        where = dict(mesh=None if allCards else [device])
+    else:
+        segFunc = shepseg.doShepherdSegmentation
+        where = dict(device=cmdargs.device)
+    segResult = segFunc(
         img, numClusters=cmdargs.nclusters,
         clusterSubsamplePcnt=cmdargs.clustersubsamplepercent,
         minSegmentSize=cmdargs.minsegmentsize,
         maxSpectralDiff=cmdargs.maxspectraldiff,
         imgNullVal=refNull, fourConnected=not cmdargs.eightway,
-        fixedKMeansInit=cmdargs.fixedkmeansinit, verbose=True,
-        device=cmdargs.device)
+        fixedKMeansInit=cmdargs.fixedkmeansinit, verbose=True, **where)
 
     seg = segResult.segimg
     segSize = shepseg.makeSegSize(seg)

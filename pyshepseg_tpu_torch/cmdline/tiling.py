@@ -3,8 +3,10 @@ Command-line tool: full tiled segmentation pipeline
 (counterpart: pyshepseg_tpu/cmdline/tiling.py; reference:
 pyshepseg/cmdline/tiling.py) — segmentation parameters, tiling
 parameters, per-segment statistics specs, colour tables, and concurrency
-flags, on the device given by ``--device``. CONC_MESH, the multi-device
-backend, is not ported yet and raises NotImplementedError.
+flags, on the device given by ``--device``. With ``--concurrencytype
+CONC_MESH`` the tiles are dealt to every visible CUDA device (or run on
+the one device that ``--device cpu`` names), ``--tilesperdevice`` at a
+time to each.
 """
 
 import sys
@@ -111,8 +113,9 @@ def getCmdargs():
     concGroup.add_argument("--concurrencytype", default=tiling.CONC_NONE,
         choices=[tiling.CONC_NONE, tiling.CONC_THREADS, tiling.CONC_FARGATE,
                  tiling.CONC_SUBPROC, tiling.CONC_MESH],
-        help="Type of concurrency for tiled segmentation; CONC_MESH is "
-             "not ported yet and raises (default=%(default)s)")
+        help="Type of concurrency for tiled segmentation; CONC_MESH "
+             "deals chunks of tiles to every visible CUDA device "
+             "(default=%(default)s)")
     concGroup.add_argument("--numworkers", default=0, type=int,
         help="Number of workers for concurrent segmentation "
              "(default=%(default)s)")
@@ -130,8 +133,8 @@ def getCmdargs():
              "tile from the file. 'auto' enables it when the scene fits "
              "the device's memory budget (default=%(default)s)")
     concGroup.add_argument("--tilesperdevice", type=int, default=1,
-        help="Tiles batched per device by CONC_MESH, which is not "
-             "ported yet; must be 1 (default=%(default)s)")
+        help="With CONC_MESH, tiles each device takes from a chunk of "
+             "nDev * tilesperdevice tiles (default=%(default)s)")
     concGroup.add_argument("--workerdevices", default="default",
         choices=["default", "all"],
         help="With CONC_THREADS, 'all' assigns worker threads to the "

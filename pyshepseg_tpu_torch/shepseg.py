@@ -71,6 +71,71 @@ class SegmentationResult(object):
         self.elimPasses = None
 
 
+def segment_on_device(img_dev, centers, nullVal, hasNull, maxSpectralDiff,
+                      minSegmentSize, fourConnected, clump_two_level=None):
+    """
+    The device-resident body of the segmentation: cluster assignment ->
+    clumping -> single-pixel elimination -> small-segment elimination ->
+    contiguous relabel, on the device ``img_dev`` lies on, with no copy of
+    an image to the host. ``img_dev`` is the (nBands, H, W) tensor
+    :func:`image_tensor` gives, ``centers`` the (K, nBands) float32 cluster
+    centres on the same device, ``nullVal`` the null value as a number of
+    the image's own type (unused when ``hasNull`` is False) and
+    ``maxSpectralDiff`` a resolved number (:func:`autoMaxSpectralDiff`).
+
+    :func:`doShepherdSegmentation` is the k-means fit, this function and
+    the download of its result; ``parallel.pipeline.segment_tile`` is this
+    function alone.
+
+    Returns (seg int32 tensor (H, W), ids 1..maxSegId in scan order and 0
+    for null, and a dict: ``maxSegId`` (a 0-dim tensor on the device),
+    ``numClumps``, ``clumpSweeps``, ``numAfterSingle``, ``numElimSmall``,
+    ``elimPasses`` (Python ints) and ``clumpDone`` (time.time() when the
+    clump stage had ended)).
+    """
+    device = img_dev.device
+    # cluster and clump (the JAX package's _cluster_and_clump_device)
+    clusters = assign_clusters(img_dev, centers, nullVal, hasNull)
+    seg_clump, numClumps, clumpSweeps = clump_labels(
+        clusters, SEGNULLVAL, four_connected=fourConnected,
+        two_level=clump_two_level)
+    clumpDone = time.time()
+
+    # the JAX package's _elim_fused_device, as sequential calls
+    capacity = numClumps + 1
+    img_f = img_dev.to(torch.float32)
+    seg, _, _ = eliminate_single_pixels_device(
+        img_f, seg_clump, None, fourConnected, do_relabel=False)
+    planes = band_planes(img_dev)
+    size, spect = seg_sizes_and_spectral_sums_planes(seg, planes, capacity)
+    nAfterSingle = to_host(torch.count_nonzero(size[MINSEGID:]))
+    numElimSmall, elimPasses = 0, 0
+    if minSegmentSize > 1:
+        # The graph loop runs on the CLUMP image's edges, seeded with the
+        # clump -> post-single-pixel id map: single-pixel merges only
+        # contract the adjacency graph, and contracted duplicate pairs
+        # are harmless (a pass min-reduces per pair). Every pixel of a
+        # clump carries the same new id, so a scatter builds the map.
+        a, b, first, _ = edge_sort_keys(seg_clump, fourConnected)
+        ea, eb = compact_edges(a, b, first)
+        remap0 = torch.arange(capacity, device=device).scatter_(
+            0, seg_clump.reshape(-1).long(), seg.reshape(-1).long())
+        remap, size, numElimSmall, elimPasses = (
+            eliminate_small_segments_graph(
+                ea, eb, size, spect, minSegmentSize, maxSpectralDiff,
+                remap_init=remap0))
+        seg = _remap_and_relabel(seg, remap, size)
+    else:
+        seg = _remap_and_relabel(
+            seg, torch.arange(capacity, device=device), size)
+    info = dict(maxSegId=torch.count_nonzero(size[MINSEGID:]),
+                numClumps=int(numClumps), clumpSweeps=int(clumpSweeps),
+                numAfterSingle=int(nAfterSingle),
+                numElimSmall=int(numElimSmall), elimPasses=int(elimPasses),
+                clumpDone=clumpDone)
+    return seg, info
+
+
 def doShepherdSegmentation(img, numClusters=60, clusterSubsamplePcnt=1,
         minSegmentSize=50, maxSpectralDiff='auto', imgNullVal=None,
         fourConnected=True, verbose=False, fixedKMeansInit=False,
@@ -111,50 +176,22 @@ def doShepherdSegmentation(img, numClusters=60, clusterSubsamplePcnt=1,
     maxSpectralDiff = autoMaxSpectralDiff(km, maxSpectralDiff,
                                           spectDistPcntile)
 
-    # cluster and clump (the JAX package's _cluster_and_clump_device)
-    clusters = assign_clusters(img_dev, centers, nullVal, hasNull)
-    seg_clump, maxSegId, clumpSweeps = clump_labels(
-        clusters, SEGNULLVAL, four_connected=bool(fourConnected))
-    if verbose:
-        print("Kmeans plus clump found", maxSegId, "clumps, in",
-              round(time.time() - t0, 1), "seconds,", clumpSweeps,
-              "propagation sweeps")
-
-    # the JAX package's _elim_fused_device, as sequential calls
-    t0 = time.time()
-    capacity = maxSegId + 1
-    img_f = img_dev.to(torch.float32)
-    seg, _, _ = eliminate_single_pixels_device(
-        img_f, seg_clump, None, bool(fourConnected), do_relabel=False)
-    planes = band_planes(img_dev)
-    size, spect = seg_sizes_and_spectral_sums_planes(seg, planes, capacity)
-    nAfterSingle = to_host(torch.count_nonzero(size[MINSEGID:]))
-    numElimSmall, elimPasses = 0, 0
-    if minSegmentSize > 1:
-        # The graph loop runs on the CLUMP image's edges, seeded with the
-        # clump -> post-single-pixel id map: single-pixel merges only
-        # contract the adjacency graph, and contracted duplicate pairs
-        # are harmless (a pass min-reduces per pair). Every pixel of a
-        # clump carries the same new id, so a scatter builds the map.
-        a, b, first, _ = edge_sort_keys(seg_clump, bool(fourConnected))
-        ea, eb = compact_edges(a, b, first)
-        remap0 = torch.arange(capacity, device=device).scatter_(
-            0, seg_clump.reshape(-1).long(), seg.reshape(-1).long())
-        remap, size, numElimSmall, elimPasses = (
-            eliminate_small_segments_graph(
-                ea, eb, size, spect, int(minSegmentSize), maxSpectralDiff,
-                remap_init=remap0))
-        seg = _remap_and_relabel(seg, remap, size)
-    else:
-        seg = _remap_and_relabel(
-            seg, torch.arange(capacity, device=device), size)
+    seg, info = segment_on_device(
+        img_dev, centers, nullVal, hasNull, maxSpectralDiff,
+        int(minSegmentSize), bool(fourConnected))
+    maxSegId, clumpSweeps = info["numClumps"], info["clumpSweeps"]
+    numElimSmall, elimPasses = info["numElimSmall"], info["elimPasses"]
     # int32 ids are non-negative: reinterpret, no host copy
     segimg = seg.to(torch.int32).cpu().numpy().view(SegIdType)
-    numElimSinglepix = maxSegId - int(nAfterSingle)
+    numElimSinglepix = maxSegId - info["numAfterSingle"]
     if verbose:
+        print("Kmeans plus clump found", maxSegId, "clumps, in",
+              round(info["clumpDone"] - t0, 1), "seconds,", clumpSweeps,
+              "propagation sweeps")
         print("Eliminated", numElimSinglepix, "single pixels and",
               numElimSmall, "small segments in", elimPasses,
-              "graph passes, in", round(time.time() - t0, 1), "seconds")
+              "graph passes, in", round(time.time() - info["clumpDone"], 1),
+              "seconds")
         print("Final result has", int(segimg.max()) if segimg.size else 0,
               "segments")
 

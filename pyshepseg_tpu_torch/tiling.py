@@ -19,8 +19,8 @@ Concurrency backends (reference: tiling.py:85-109 CONC_* types):
 - CONC_SUBPROC — local subprocess workers over the NetworkDataChannel
   (the CI-testable stand-in for true multi-host runs)
 - CONC_FARGATE — elastic AWS Fargate workers (requires boto3)
-- CONC_MESH — the multi-device backend; not ported yet (ROADMAP queue 1,
-  item 12), selecting it raises NotImplementedError
+- CONC_MESH — chunks of tiles dealt to a list of devices, each running the
+  device-resident pipeline on its share (parallel/mesh.py)
 
 Also provides the decomposed 3-phase API
 (doTiledShepherdSegmentation_prepare / _doOne / _finalize) used by
@@ -354,9 +354,8 @@ def selectConcurrencyClass(concurrencyType, baseClass):
     """Choose the manager subclass for the given concurrencyType
     (reference: tiling.py:574-587)."""
     if concurrencyType == CONC_MESH:
-        raise NotImplementedError(
-            "CONC_MESH, the multi-device backend, is not ported to "
-            "pyshepseg_tpu_torch yet (ROADMAP.md queue 1, item 12)")
+        # registers the SegMeshMgr subclass (lazy: avoids a circular import)
+        from . import parallel  # noqa: F401
     for c in baseClass.__subclasses__():
         if c.concurrencyType == concurrencyType:
             return c
@@ -369,16 +368,17 @@ class SegmentationConcurrencyConfig:
     (reference: tiling.py:590-634).
 
     ``deviceSceneCache`` controls the whole-scene cache used by the
-    in-process backends (CONC_NONE / CONC_THREADS): 'auto' (default)
-    copies the full scene to the device once and cuts tiles there when
-    the scene fits comfortably in the device's memory, which avoids
-    re-reading and re-copying the overlap regions of every tile; True
+    in-process backends (CONC_NONE / CONC_THREADS / CONC_MESH): 'auto'
+    (default) copies the full scene to the device once and cuts tiles
+    there when the scene fits comfortably in the device's memory, which
+    avoids re-reading and re-copying the overlap regions of every tile; True
     forces it (errors if the scene cannot be read whole); False always
     streams tiles from the file as the reference does.
 
-    ``tilesPerDevice`` batches tiles per device in the JAX package's
-    multi-device backend CONC_MESH, which is not ported yet; here it only
-    takes its default, 1, so that setting it cannot silently do nothing.
+    ``tilesPerDevice`` (CONC_MESH only) is the number of tiles each
+    device takes from a chunk: a chunk is ``nDev * tilesPerDevice`` tiles,
+    read (or sliced from the scene cache) together and dealt to the devices
+    in contiguous runs. Results are bit-identical for any value.
 
     ``workerDevices`` (CONC_THREADS only): 'default' runs every worker
     thread's tiles on the run's ``device``; 'all' assigns worker ``i`` to
@@ -400,6 +400,7 @@ class SegmentationConcurrencyConfig:
         self.barrierTimeout = barrierTimeout
         self.fargateCfg = fargateCfg
         self.deviceSceneCache = deviceSceneCache
+        self.tilesPerDevice = tilesPerDevice
         self.workerDevices = workerDevices
         if concurrencyType == CONC_FARGATE and fargateCfg is None:
             raise PyShepSegTilingError(
@@ -414,10 +415,9 @@ class SegmentationConcurrencyConfig:
             # Normalise truthy/falsy equivalents (1/0 pass the equality
             # check above) so downstream identity tests are reliable.
             self.deviceSceneCache = bool(deviceSceneCache)
-        if tilesPerDevice != 1:
+        if not (isinstance(tilesPerDevice, int) and tilesPerDevice >= 1):
             raise PyShepSegTilingError(
-                "tilesPerDevice batches tiles for CONC_MESH, which is not "
-                "ported yet (ROADMAP queue 1, item 12); it must be 1")
+                "tilesPerDevice must be a positive integer")
         if workerDevices not in ('default', 'all'):
             raise PyShepSegTilingError(
                 "workerDevices must be 'default' or 'all'")
@@ -734,15 +734,17 @@ class SegmentationConcurrencyMgr:
         """
         Build the whole-scene cache (DeviceSceneCache) on ``self.device``
         when configured and applicable. Only the in-process backends
-        (CONC_NONE / CONC_THREADS) can share a device-resident scene;
-        out-of-process workers read the raster themselves.
+        (CONC_NONE / CONC_THREADS / CONC_MESH) can share a device-resident
+        scene; out-of-process workers read the raster themselves.
         """
         cfg = getattr(self.concurrencyCfg, 'deviceSceneCache', False)
-        supported = self.concurrencyType in (CONC_NONE, CONC_THREADS)
+        supported = self.concurrencyType in (CONC_NONE, CONC_THREADS,
+                                             CONC_MESH)
         if cfg is True and not supported:
             raise PyShepSegTilingError(
                 "deviceSceneCache=True is only supported with the "
-                "in-process backends (CONC_NONE / CONC_THREADS)")
+                "in-process backends (CONC_NONE / CONC_THREADS / "
+                "CONC_MESH)")
         if cfg is False or not supported:
             return
         if inDs is None:

@@ -161,7 +161,20 @@ def test_runtests_cli_on_cpu(tmp_path, monkeypatch, capsys):
 
 
 def test_tiling_cli_mesh_not_ported(scene, tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="CONC_MESH"):
-        run_cli(monkeypatch, tiling_cli, [
-            "-i", scene, "-o", str(tmp_path / "o.npseg"), "--device", "cpu",
-            "--concurrencytype", "CONC_MESH"] + SEG_ARGS)
+    """``--concurrencytype CONC_MESH`` (which raised here until the
+    multi-device backends were ported; the test keeps its name) against the
+    JAX command line's CONC_MESH: raster, Histogram and a stats column."""
+    from pyshepseg_tpu_torch.parallel import mesh
+    monkeypatch.setattr(mesh.SegMeshMgr, "meshDevices", ["cpu", "cpu"])
+    args = SEG_ARGS + ["--concurrencytype", "CONC_MESH", "--tilesperdevice",
+                       "2", "--statsbands", "2", "--statspec", "mean"]
+    got, want = str(tmp_path / "got.npseg"), str(tmp_path / "want.npseg")
+    run_cli(monkeypatch, tiling_cli, ["-i", scene, "-o", got] + args +
+            ["--device", "cpu"])
+    run_cli(monkeypatch, jax_tiling_cli, ["-i", scene, "-o", want] + args)
+    seg, cols = rat_of(got)
+    wseg, wcols = rat_of(want)
+    np.testing.assert_array_equal(seg, wseg)
+    assert seg.max() > 1
+    for name in ("Histogram", "Band_2_mean"):
+        np.testing.assert_array_equal(cols[name], wcols[name], err_msg=name)

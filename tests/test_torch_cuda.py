@@ -557,3 +557,125 @@ def test_spatial_auto_streams_on_card(tmp_path):
     np.testing.assert_array_equal(e_a, e_d)
     np.testing.assert_array_equal(v_a == -9999, v_d == -9999)
     np.testing.assert_allclose(v_a, v_d, rtol=1e-5, atol=1e-3)
+
+
+# ------------------------------------------------ the multi-device slice
+
+
+def _palette_image(h, w, seed, nullval=None):
+    """The palette image of tests/test_shardmap_seg.py (no JAX here):
+    Voronoi cells in palette colours with 5 % salt; the centres are the
+    palette."""
+    rng = np.random.default_rng(seed)
+    ncells = 25
+    centres = rng.uniform(0, [h, w], size=(ncells, 2))
+    yy, xx = np.mgrid[0:h, 0:w]
+    cells = ((yy[..., None] - centres[:, 0]) ** 2 +
+             (xx[..., None] - centres[:, 1]) ** 2).argmin(axis=-1)
+    cells = np.where(rng.random((h, w)) < 0.05,
+                     rng.integers(0, ncells, (h, w)), cells)
+    palette = rng.integers(10, 900, size=(ncells, 3))
+    img = palette[cells].transpose(2, 0, 1).astype(np.uint16)
+    if nullval is not None:
+        img[:, :4, :] = nullval
+        img[:, :, -4:] = nullval
+    return img, palette.astype(np.float32)
+
+
+@pytest.mark.parametrize("four,nullval", [(True, None), (False, 9999)])
+def test_segment_tile_on_card_matches_cpu(four, nullval):
+    """pipeline.segment_tile on tensors on the card: tensors come back on
+    the card, K1 and K2 launch, and the labels equal the CPU's."""
+    need_cuda()
+    from pyshepseg_tpu_torch.parallel import pipeline
+    img, centers = _palette_image(300, 260, 8, nullval)
+    args = (nullval or 0, 200.0, 10, four, nullval is not None)
+    before = (local_ccl.local_ccl_blocks.launches, lut.lut_gather.launches)
+    seg, maxid = pipeline.segment_tile(
+        torch.from_numpy(img).cuda(), torch.from_numpy(centers).cuda(),
+        *args)
+    assert seg.is_cuda and maxid.is_cuda and seg.dtype == torch.int32
+    assert local_ccl.local_ccl_blocks.launches == before[0] + 1
+    assert lut.lut_gather.launches > before[1]
+    want, want_max = pipeline.segment_tile(
+        torch.from_numpy(img), torch.from_numpy(centers), *args)
+    assert torch.equal(seg.cpu(), want)
+    assert int(maxid) == int(want_max) == int(seg.max())
+
+
+@pytest.mark.parametrize("tpd", [1, 2])
+def test_tiled_mesh_on_card_matches_serial(tmp_path, tpd):
+    """CONC_MESH over the visible cards (one here: a plain loop) with the
+    scene cache, against CONC_NONE; K1 once a tile."""
+    need_cuda()
+    km = _tiled_case(tmp_path)
+    want, (seg_w, hist_w) = _tiled(tmp_path, "none", km, "cuda")
+    cfg = tiling.SegmentationConcurrencyConfig(
+        concurrencyType=tiling.CONC_MESH, tilesPerDevice=tpd)
+    before = local_ccl.local_ccl_blocks.launches
+    got, (seg_g, hist_g) = _tiled(tmp_path, "mesh", km, "cuda",
+                                  concurrencyCfg=cfg)
+    assert local_ccl.local_ccl_blocks.launches == before + 12
+    np.testing.assert_array_equal(seg_g, seg_w)
+    np.testing.assert_array_equal(hist_g, hist_w)
+    assert got.maxSegId == want.maxSegId
+    assert got.maxSpectralDiff == want.maxSpectralDiff
+
+
+def _sharded_case(mesh):
+    from pyshepseg_tpu_torch.parallel import pipeline, shardmap_seg
+    img, centers = _palette_image(298, 260, 9, 9999)
+    seg, maxid = pipeline.segment_tile(
+        torch.from_numpy(img).cuda(), torch.from_numpy(centers).cuda(),
+        9999, 250.0, 10, False, True)
+    before = lut.lut_gather.launches
+    got, got_max = shardmap_seg.segment_image_sharded(
+        img, centers, imgNullVal=9999, maxSpectralDiff=250.0,
+        minSegmentSize=10, fourConnected=False, mesh=mesh)
+    assert lut.lut_gather.launches > before
+    np.testing.assert_array_equal(got, seg.cpu().numpy())
+    assert got_max == int(maxid)
+
+
+def test_sharded_over_one_card_four_times_matches_segment_tile():
+    """Four stripes (298 rows: two null padding rows) that all lie on
+    cuda:0: every halo exchange and fixpoint runs, on one card."""
+    need_cuda()
+    _sharded_case(["cuda:0"] * 4)
+
+
+def test_sharded_over_distinct_cards_matches_segment_tile():
+    need_cuda()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs more than one CUDA device")
+    _sharded_case(["cuda:%d" % i for i in range(n)])
+
+
+def test_clump_sharded_on_card_matches_clump():
+    need_cuda()
+    from pyshepseg_tpu_torch.parallel import shardmap_clump
+    img = random_clusters(np.random.default_rng(12), (301, 257)).astype(
+        np.int32)
+    for four in (True, False):
+        want, nxt = clump.clump(img, 0, four, device="cuda")
+        got, num = shardmap_clump.clump_sharded(img, 0, four,
+                                                mesh=["cuda:0"] * 3)
+        np.testing.assert_array_equal(got, want)
+        assert num == nxt - 1
+
+
+def test_mesh_over_distinct_cards_matches_serial(tmp_path):
+    """CONC_MESH with one thread and one stream per card."""
+    need_cuda()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs more than one CUDA device")
+    km = _tiled_case(tmp_path)
+    want, (seg_w, hist_w) = _tiled(tmp_path, "none", km, "cuda")
+    cfg = tiling.SegmentationConcurrencyConfig(
+        concurrencyType=tiling.CONC_MESH, tilesPerDevice=2)
+    got, (seg_g, hist_g) = _tiled(tmp_path, "mesh", km, "cuda",
+                                  concurrencyCfg=cfg)
+    np.testing.assert_array_equal(seg_g, seg_w)
+    np.testing.assert_array_equal(hist_g, hist_w)
+    assert got.maxSegId == want.maxSegId

@@ -11,6 +11,7 @@ import subprocess
 
 import numpy as np
 import pytest
+import torch
 
 from pyshepseg_tpu_torch import tiling
 from pyshepseg_tpu_torch.cmdline import run_seg
@@ -171,7 +172,7 @@ def test_fargate_requires_boto3(monkeypatch):
     dict(deviceSceneCache="bogus"),
     dict(tilesPerDevice=0),
     dict(tilesPerDevice=1.5),
-    dict(tilesPerDevice=2),
+    dict(tilesPerDevice="2"),
     dict(workerDevices="some"),
 ])
 def test_config_validation(kwargs):
@@ -189,12 +190,12 @@ def test_config_normalises_scene_cache_flag():
 @pytest.mark.parametrize("concType,kwargs,exc", [
     (tiling.CONC_THREADS, {}, tiling.PyShepSegTilingError),
     (tiling.CONC_NONE, dict(overlapSize=15), tiling.PyShepSegTilingError),
-    (tiling.CONC_MESH, {}, NotImplementedError),
+    (tiling.CONC_MESH, dict(overlapSize=15), tiling.PyShepSegTilingError),
     ("CONC_OTHER", {}, ValueError),
 ])
 def test_driver_rejects_bad_setup(serial, tmp_path, concType, kwargs, exc):
-    """No workers for CONC_THREADS, an odd overlap, the unported
-    CONC_MESH and an unknown backend."""
+    """No workers for CONC_THREADS, an odd overlap (CONC_NONE and
+    CONC_MESH) and an unknown backend."""
     cfg = tiling.SegmentationConcurrencyConfig(concurrencyType=concType)
     with pytest.raises(exc):
         run_tiled(serial["inpath"], str(tmp_path / "out.npseg"),
@@ -211,17 +212,34 @@ def test_scene_cache_forced_on_subproc_rejected():
         mgr.maybeBuildSceneCache()
 
 
-def test_run_seg_sharded_raises(monkeypatch):
-    monkeypatch.setattr(sys, "argv", [
-        "run_seg", "-i", "in.npseg", "-o", "out.npseg", "--sharded",
-        "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="multi-device"):
+def test_run_seg_sharded_raises(serial, tmp_path, monkeypatch):
+    """``run_seg --sharded`` runs the row-sharded pipeline: on the CPU its
+    output equals the unsharded command's; with the default ``--device
+    cuda`` it raises where there is no CUDA device, and never moves to the
+    CPU by itself."""
+    args = ["-i", serial["inpath"], "-n", "20", "-b", "1,2,3", "-s", "10",
+            "-m", "30", "-c", "10", "--fixedkmeansinit"]
+    outs = []
+    for extra in ([], ["--sharded"]):
+        out = str(tmp_path / ("out%d.npseg" % len(outs)))
+        monkeypatch.setattr(sys, "argv", ["run_seg", "-o", out, "--device",
+                                          "cpu"] + args + extra)
         run_seg.mainCmd()
+        outs.append(tiling.rio.open(out).GetRasterBand(1).ReadAsArray())
+    np.testing.assert_array_equal(outs[1], outs[0])
+    assert outs[0].max() > 1
+    if not torch.cuda.is_available():
+        monkeypatch.setattr(sys, "argv", [
+            "run_seg", "-o", str(tmp_path / "cuda.npseg"), "--sharded"]
+            + args)
+        with pytest.raises(RuntimeError, match="is_available"):
+            run_seg.mainCmd()
 
 
 def test_tiled_path_and_cli_never_import_jax(tmp_path):
-    """A fresh interpreter runs a tiny tiled segmentation (CONC_NONE and
-    the 3-phase API), the stats pass on both engines, subsetImage, and
+    """A fresh interpreter runs a tiny tiled segmentation (CONC_NONE,
+    CONC_MESH over two CPU devices and the 3-phase API), the row-sharded
+    pipeline and ``run_seg --sharded``, the stats pass on both engines, subsetImage, and
     the run_seg, tiling, variograms, subset and runtests CLIs on the CPU
     with PYSHEPSEG_TPU_PLATFORM set; neither JAX nor the JAX package may
     be imported, the run_seg CLI's output must equal
@@ -236,6 +254,7 @@ from pyshepseg_tpu_torch import tilingstats
 from pyshepseg_tpu_torch.cmdline import run_seg, runtests, variograms
 from pyshepseg_tpu_torch.cmdline import subset as subset_cli
 from pyshepseg_tpu_torch.cmdline import tiling as tiling_cli
+from pyshepseg_tpu_torch.parallel import mesh, shardmap_seg
 d = {str(tmp_path)!r}
 rng = np.random.default_rng(0)
 img = (100 + 40 * rng.integers(0, 6, size=(1, 20, 24))).repeat(8, 1)
@@ -248,6 +267,15 @@ res = tiling.doTiledShepherdSegmentation(
     d + '/in.npseg', d + '/tiled.npseg', tileSize=64, overlapSize=16,
     numClusters=6, minSegmentSize=5, fixedKMeansInit=True, device='cpu')
 assert res.maxSegId > 0 and not res.hasEmptySegments
+mesh.SegMeshMgr.meshDevices = ['cpu', 'cpu']
+resm = tiling.doTiledShepherdSegmentation(
+    d + '/in.npseg', d + '/mesh.npseg', tileSize=64, overlapSize=16,
+    kmeansObj=res.kmeans, minSegmentSize=5, device='cpu',
+    concurrencyCfg=tiling.SegmentationConcurrencyConfig(
+        concurrencyType=tiling.CONC_MESH, tilesPerDevice=2))
+assert resm.maxSegId == res.maxSegId
+assert (rio.open(d + '/mesh.npseg').GetRasterBand(1).ReadAsArray() ==
+        rio.open(d + '/tiled.npseg').GetRasterBand(1).ReadAsArray()).all()
 prep = tiling.doTiledShepherdSegmentation_prepare(
     d + '/in.npseg', tileSize=64, overlapSize=16, kmeansObj=res.kmeans,
     device='cpu')
@@ -259,10 +287,21 @@ sys.argv = ['run_seg', '-i', d + '/in.npseg', '-o', d + '/cli.npseg',
             '--fixedkmeansinit', '--device', 'cpu']
 run_seg.mainCmd()
 cli = rio.open(d + '/cli.npseg').GetRasterBand(1).ReadAsArray()
-want = shepseg.doShepherdSegmentation(
+want_res = shepseg.doShepherdSegmentation(
     img, numClusters=6, clusterSubsamplePcnt=100, minSegmentSize=5,
-    fixedKMeansInit=True, device='cpu').segimg
+    fixedKMeansInit=True, device='cpu')
+want = want_res.segimg
 assert (cli == want).all()
+sys.argv = sys.argv[:4] + [d + '/clis.npseg'] + sys.argv[5:] + ['--sharded']
+run_seg.mainCmd()
+clis = rio.open(d + '/clis.npseg').GetRasterBand(1).ReadAsArray()
+assert (clis == want).all()
+km = want_res.kmeans
+sharded, _ = shardmap_seg.segment_image_sharded(
+    img, km.cluster_centers_, maxSpectralDiff=float(
+        shepseg.autoMaxSpectralDiff(km, 'auto', 50)), minSegmentSize=5,
+    mesh=['cpu'] * 4)
+assert (sharded == want).all()
 sel = [('m', 'mean'), ('p', 'percentile', 50)]
 for engine in ('device', 'host'):
     tilingstats.calcPerSegmentStatsTiled(
