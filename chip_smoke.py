@@ -30,7 +30,14 @@ doShepherdSegmentation's, timed beside it), 12b CONC_MESH over the
 12c the row-sharded clump and segmentation of the tile over a device list
 that names cuda:0 four times, and once (equal to clump and to 12a), 12d
 two processes of the dcnworkercmd command line over the 1536x1536 scene
-through a TCPStore on localhost (equal to the serial run).
+through a TCPStore on localhost (equal to the serial run). Phase 13 drives
+the batch deployment parallel_examples/gpubatch on the card: 13a the local
+backend of submit_pyshepseg_job.py over the 1536x1536 scene and over the
+8000x8000 scene at the default tile (prepare, one fresh process a tile,
+two at a time, stitch, through a file:// object store; each equal to its
+scene's serial run; K1 once and K2 at least once in every tile job), 13b one do_tile.py job with the
+kernel library removed first (it builds it) and one with it in place, each
+job's own seconds by stage printed.
 
     python3 chip_smoke.py
 
@@ -41,7 +48,7 @@ also fails where CUDA is absent or the package is missing. The last line of stan
 before it come the card's name and power limit as nvidia-smi reports them
 and the per-kernel JSON record (times, bound, plain version and library
 call), whose launch counts are those of the serial tiled run plus phase
-12's paths, each counted from 0.
+12's and phase 13's paths, each counted from 0.
 """
 
 import contextlib
@@ -1625,6 +1632,147 @@ def phase_dcn(tmp, inpath, serial_out):
     return total
 
 
+GPUBATCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "parallel_examples", "gpubatch")
+# phase 8's grid and settings (TILED) as the batch scripts take them,
+# and phase 7's (the scripts' default grid)
+BATCH_GRID = ["--tilesize", "1024", "--overlapsize", "256", "--nclusters",
+              str(TILED["numClusters"]), "--fixedkmeansinit"]
+BATCH_GRID_8000 = ["--tilesize", "4096", "--overlapsize", "1024",
+                   "--nclusters", str(TILED["numClusters"]),
+                   "--fixedkmeansinit"]
+
+
+def run_job(script, args, what, timeout=600):
+    """One gpubatch script in a fresh process: (stdout, wall seconds).
+    A non-zero exit fails the phase."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root, os.environ.get("PYTHONPATH", "")]))
+    t0 = time.time()
+    res = subprocess.run(
+        [sys.executable, os.path.join(GPUBATCH, script)] + args,
+        capture_output=True, text=True, env=env, cwd=root, timeout=timeout)
+    if res.returncode != 0:
+        raise AssertionError("%s: %s exited %d:\n%s\n%s" % (
+            what, script, res.returncode, res.stdout, res.stderr))
+    return res.stdout, time.time() - t0
+
+
+def tile_jobs(stdout, what, ntiles):
+    """The TILEJOB records in ``stdout`` by tile index; every job must
+    have launched K1 once and K2 at least once, on the card."""
+    recs = [json.loads(ln.split(" ", 1)[1]) for ln in stdout.splitlines()
+            if ln.startswith("TILEJOB ")]
+    if sorted(rec["index"] for rec in recs) != list(range(ntiles)):
+        raise AssertionError("%s: tile jobs %s, wanted %d" % (
+            what, sorted(rec["index"] for rec in recs), ntiles))
+    for rec in recs:
+        if (not rec["device"].startswith("cuda")
+                or rec["launches"]["local_ccl"] != 1
+                or rec["launches"]["lut_gather"] < 1):
+            raise AssertionError("%s: tile job %d ran on %s with launches "
+                                 "%s" % (what, rec["index"], rec["device"],
+                                         rec["launches"]))
+    return sorted(recs, key=lambda rec: rec["index"])
+
+
+STAGES = ("import", "torch", "cudainit", "kernels", "build", "download", "doOne",
+          "reading", "upload", "total")
+
+
+def print_tile_job(name, rec, wall=None):
+    print("%s tile job %d (%d, %d): %s s | K1 %d K2 %d | peak %.1f MiB%s"
+          % (name, rec["index"], rec["col"], rec["row"],
+             " ".join("%s %.3f" % (k, rec["seconds"][k]) for k in STAGES),
+             rec["launches"]["local_ccl"], rec["launches"]["lut_gather"],
+             rec["peak_mib"],
+             "" if wall is None else " | process wall %.3f s" % wall))
+
+
+def phase_batch(tmp, inpath, serial_out, what, grid, ntiles,
+                worker_counts=(2,)):
+    """13a: the whole batch run through submit_pyshepseg_job.py's local
+    backend over a scene of an earlier phase (``what``; ``grid`` is that
+    phase's tile grid and k-means arguments, ``ntiles`` its tile count),
+    two tile processes at a time (one run for each of ``worker_counts``;
+    (1, 2) compares one process at a time with two): the output equals
+    that scene's serial run bit for bit, and every tile job launched K1
+    once and K2. Returns the tile jobs' launches."""
+    phase("13a batch deployment (gpubatch, local backend), " + what)
+    seg0, hist0 = read_seg(serial_out)
+    total = {}
+    for workers in worker_counts:
+        name = "%s, workers %d" % (what, workers)
+        store = os.path.join(tmp, "store%d_%d" % (ntiles, workers))
+        stdout, wall = run_job(
+            "submit_pyshepseg_job.py",
+            ["--backend", "local", "--infile", inpath, "--store",
+             "file://" + store, "--workers", str(workers), "--device",
+             "cuda", "--minsegmentsize", str(TILED["minSegmentSize"])]
+            + grid, name)
+        recs = tile_jobs(stdout, name, ntiles)
+        for rec in recs:
+            print_tile_job(name, rec)
+            add_counts(total, rec["launches"])
+        seg, hist = read_seg(os.path.join(store, "segmentation.npseg"))
+        if not np.array_equal(seg, seg0) or not np.array_equal(hist, hist0):
+            raise AssertionError("batch, %s: output differs from the serial "
+                                 "run at %d pixels" % (name,
+                                                       (seg != seg0).sum()))
+        if os.listdir(store) != ["segmentation.npseg"]:
+            raise AssertionError("batch, %s: the store keeps %s" % (
+                name, os.listdir(store)))
+        doOne = sum(rec["seconds"]["doOne"] for rec in recs)
+        jobs = sum(rec["seconds"]["total"] for rec in recs)
+        print("batch, %s: exit 0, wall %.3f s (prepare, %d tile jobs, "
+              "stitch); output == the serial run bit for bit (%d segments); "
+              "tile jobs %.3f s in all, doOne %.3f s of it (%.1f %%); peak "
+              "per process %.1f MiB"
+              % (name, wall, ntiles, int(seg.max()), jobs, doOne,
+                 100.0 * doOne / jobs,
+                 max(rec["peak_mib"] for rec in recs)))
+    return total
+
+
+def read_tile(path):
+    return rio.open(path).GetRasterBand(1).ReadAsArray()
+
+
+def phase_cold_tile_job(tmp, inpath):
+    """13b: one do_tile.py job with no kernel library (it compiles it)
+    and one with the library in place. Returns their launches."""
+    phase("13b one tile job without the kernel library, one with it")
+    store = os.path.join(tmp, "store_cold")
+    _, wall = run_job("do_prepare.py",
+                      ["--infile", inpath, "--store", "file://" + store,
+                       "--device", "cuda"] + BATCH_GRID, "prepare")
+    print("prepare job: process wall %.3f s" % wall)
+    total, tiles = {}, []
+    for name in ("cold", "warm"):
+        if name == "cold":
+            os.remove(_kernels.LIB_PATH)
+        stdout, wall = run_job(
+            "do_tile.py", ["--store", "file://" + store, "--index", "0",
+                           "--device", "cuda"], name)
+        rec, = tile_jobs(stdout, name, 1)
+        print_tile_job(name, rec, wall)
+        built = rec["seconds"]["build"] > 0
+        if built != (name == "cold"):
+            raise AssertionError("%s tile job: build took %r s" % (
+                name, rec["seconds"]["build"]))
+        add_counts(total, rec["launches"])
+        tiles.append(read_tile(os.path.join(
+            store, "tile_%d_%d.npseg" % (rec["col"], rec["row"]))))
+    if not os.path.exists(_kernels.LIB_PATH):
+        raise AssertionError("the cold tile job left no kernel library")
+    if not np.array_equal(tiles[0], tiles[1]):
+        raise AssertionError("cold and warm tile jobs differ")
+    print("cold and warm tile jobs: exit 0, equal tiles, the library is "
+          "back at %s" % _kernels.LIB_PATH)
+    return total
+
+
 def main():
     kind, smi = phase_device()
     dev = torch.device("cuda")
@@ -1646,10 +1794,15 @@ def main():
         phase_stats(scene, segpath)
         cli_launches = phase_cli(tmp, scene)
         mesh_launches = phase_mesh(tmp, scene, km7, segpath)
+        batch8000_launches = phase_batch(tmp, scene, segpath,
+                                         "8000x8000 scene", BATCH_GRID_8000, 9)
     with tempfile.TemporaryDirectory() as tmp:
         phase_tiled_dense(tmp)
         small, small_out = phase_tiled_cpu(tmp)
         dcn_launches = phase_dcn(tmp, small, small_out)
+        batch_launches = phase_batch(tmp, small, small_out,
+                                     "1536x1536 scene", BATCH_GRID, 4)
+        cold_launches = phase_cold_tile_job(tmp, small)
     phase_dense_memory(dev)
     runtests_launches = phase_runtests(dev)
     print("config1 launches (in-memory path):", config1_launches)
@@ -1660,9 +1813,13 @@ def main():
                "12c sharded image, two runs": sharded_launches,
                "12d two DCN processes": dcn_launches}
     print("phase 12 launches:", phase12)
+    phase13 = {"13a nine tile jobs, 8000x8000 scene": batch8000_launches,
+               "13a four tile jobs, 1536x1536 scene": batch_launches,
+               "13b two tile jobs": cold_launches}
+    print("phase 13 launches (counted by the tile jobs):", phase13)
     # each path was counted from 0 and read just after it ran; the
-    # record's count is the serial tiled run's plus phase 12's
-    for counts in phase12.values():
+    # record's count is the serial tiled run's plus phase 12's and 13's
+    for counts in list(phase12.values()) + list(phase13.values()):
         add_counts(launches, counts)
     graph_pass["shape"] = "graph pass, 72000 int32 from 24000 int64"
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],

@@ -31,3 +31,6 @@ and host flood fill and stitch loops (:mod:`.native`) are its own.
 
 SHEPSEG_TPU_TORCH_VERSION = "0.1.0"
 __version__ = SHEPSEG_TPU_TORCH_VERSION
+# the name the reference and the JAX package export (reference:
+# __init__.py:31-32)
+SHEPSEG_VERSION = SHEPSEG_TPU_TORCH_VERSION

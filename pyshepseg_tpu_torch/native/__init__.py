@@ -16,6 +16,9 @@ Public surface:
   left, right)`` — the per-tile stitch relabel's counting and id
   assignment (reference: pyshepseg/tiling.py:1231-1290); returns None
   when the library is unavailable and the caller runs its numpy path.
+- ``stitch_relabel(...)`` — the same plus the relabelled tile (the
+  stitcher itself gathers only the regions it consumes and calls
+  ``stitch_mapping``).
 
 All have fallbacks, so the package works without a compiler.
 """
@@ -75,6 +78,9 @@ def _build_and_load():
             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
             ctypes.POINTER(ctypes.c_uint32), ctypes.POINTER(ctypes.c_uint8),
             ctypes.c_int64, ctypes.c_uint32,
+            ctypes.POINTER(ctypes.c_uint32)]
+        lib.stitch_relabel.restype = ctypes.c_uint32
+        lib.stitch_relabel.argtypes = lib.stitch_mapping.argtypes + [
             ctypes.POINTER(ctypes.c_uint32)]
         _lib = lib
         return _lib
@@ -136,6 +142,15 @@ def _flood_fill_py(img, ignoreVal, fourConnected, cap, clumpId, out):
     return out, clumpId
 
 
+def _check_mapping(mapping):
+    """The C side updates ``mapping`` in place through a raw pointer: any
+    other layout would be silently reinterpreted, so reject it loudly."""
+    if mapping.dtype != np.uint32 or not mapping.flags.c_contiguous:
+        raise TypeError(
+            "mapping must be a C-contiguous uint32 array (updated in "
+            f"place by the native code); got {mapping.dtype}")
+
+
 def stitch_mapping(tileData, mapping, recoded, start_id,
                    top, bottom, left, right):
     """
@@ -148,12 +163,7 @@ def stitch_mapping(tileData, mapping, recoded, start_id,
     lib = _build_and_load()
     if lib is None:
         return None
-    # The C side updates ``mapping`` in place through a raw pointer: any
-    # other layout would be silently reinterpreted, so reject it loudly
-    if mapping.dtype != np.uint32 or not mapping.flags.c_contiguous:
-        raise TypeError(
-            "mapping must be a C-contiguous uint32 array (updated in "
-            f"place by the native code); got {mapping.dtype}")
+    _check_mapping(mapping)
     tileData = np.ascontiguousarray(tileData, dtype=np.uint32)
     recoded = np.ascontiguousarray(recoded, dtype=np.uint8)
     h, w = tileData.shape
@@ -165,6 +175,32 @@ def stitch_mapping(tileData, mapping, recoded, start_id,
         mapping.shape[0], int(start_id),
         _ptr(cnt, ctypes.c_uint32))
     return int(newMax), cnt
+
+
+def stitch_relabel(tileData, mapping, recoded, start_id,
+                   top, bottom, left, right):
+    """
+    :func:`stitch_mapping` plus the full-tile gather (see ccl.cpp).
+    Returns ``(outTile, newMaxSegId, winCounts)``, ``outTile`` being
+    ``mapping[tileData]`` after the update, or ``None`` when the native
+    library is unavailable (the caller runs its numpy path).
+    """
+    lib = _build_and_load()
+    if lib is None:
+        return None
+    _check_mapping(mapping)
+    tileData = np.ascontiguousarray(tileData, dtype=np.uint32)
+    recoded = np.ascontiguousarray(recoded, dtype=np.uint8)
+    h, w = tileData.shape
+    cnt = np.zeros(mapping.shape[0], dtype=np.uint32)
+    out = np.empty_like(tileData)
+    newMax = lib.stitch_relabel(
+        _ptr(tileData, ctypes.c_uint32), h, w,
+        int(top), int(bottom), int(left), int(right),
+        _ptr(mapping, ctypes.c_uint32), _ptr(recoded, ctypes.c_uint8),
+        mapping.shape[0], int(start_id),
+        _ptr(cnt, ctypes.c_uint32), _ptr(out, ctypes.c_uint32))
+    return out, int(newMax), cnt
 
 
 def subset_recode(tile, mask, lut, nextId, hist):

@@ -1,6 +1,5 @@
 // Native host loops for the order-dependent sequential parts of the port
-// (counterpart: pyshepseg_tpu/native/ccl.cpp, whose three functions used
-// by the port are carried over unchanged):
+// (counterpart: pyshepseg_tpu/native/ccl.cpp, whose functions are carried over unchanged):
 //
 // - flood_fill_clump: scan-order flood-fill connected-component labelling
 //   with the reference's MAX_CLUMP_SIZE cap semantics (reference:
@@ -14,7 +13,7 @@
 //
 // - stitch_mapping: the tiled stitch's per-tile window count and
 //   ascending owned-id assignment (reference: pyshepseg/tiling.py:
-//   1231-1290).
+//   1231-1290); stitch_relabel: the same plus the full-tile gather.
 //
 // Exposed as a plain C ABI, built with g++ on first use and loaded with
 // ctypes by pyshepseg_tpu_torch/native/__init__.py.
@@ -136,6 +135,25 @@ uint32_t stitch_mapping(const uint32_t *tile, int64_t h, int64_t w,
         if (cnt[id] != 0 && !recoded[id]) {
             mapping[id] = ++cur;
         }
+    }
+    return cur;
+}
+
+// stitch_mapping followed by the full-tile gather out[i] = mapping[tile[i]]
+// (absent and unrecoded -> 0 = SEGNULLVAL: the neighbouring tile owns it).
+//   out      (h * w,) uint32.
+uint32_t stitch_relabel(const uint32_t *tile, int64_t h, int64_t w,
+                        int64_t top, int64_t bottom,
+                        int64_t left, int64_t right,
+                        uint32_t *mapping, const uint8_t *recoded,
+                        int64_t map_len, uint32_t start_id,
+                        uint32_t *cnt, uint32_t *out) {
+    const uint32_t cur = stitch_mapping(tile, h, w, top, bottom, left,
+                                        right, mapping, recoded, map_len,
+                                        start_id, cnt);
+    const int64_t n = h * w;
+    for (int64_t i = 0; i < n; ++i) {
+        out[i] = mapping[tile[i]];
     }
     return cur;
 }

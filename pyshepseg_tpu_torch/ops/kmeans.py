@@ -258,6 +258,11 @@ class TorchKMeans:
         return out
 
 
+# The JAX package's name for the class: a caller that imports it by that
+# name gets the port's.
+TPUKMeans = TorchKMeans
+
+
 def kmeansFromReference(obj, device="cuda"):
     """
     A :class:`TorchKMeans` holding the centres of any fitted object with

@@ -679,3 +679,139 @@ def test_mesh_over_distinct_cards_matches_serial(tmp_path):
     np.testing.assert_array_equal(seg_g, seg_w)
     np.testing.assert_array_equal(hist_g, hist_w)
     assert got.maxSegId == want.maxSegId
+
+
+# ---- the batch deployment (parallel_examples/gpubatch) on the card
+
+
+def _batch_script(name):
+    import os
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(repo, "parallel_examples", "gpubatch", name)
+
+
+def _batch_job(script, args):
+    """One gpubatch script in a fresh process, started and not waited
+    for."""
+    import os
+    import subprocess
+    import sys
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.environ.get("PYTHONPATH", "")]))
+    return subprocess.Popen(
+        [sys.executable, _batch_script(script)] + args, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def _finish(procs, timeout=600):
+    """Wait for every job (none is left running); all must exit 0.
+    Returns their TILEJOB records."""
+    import json
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    recs = []
+    for p, (stdout, stderr) in zip(procs, outs):
+        assert p.returncode == 0, stdout + stderr
+        recs += [json.loads(ln.split(" ", 1)[1])
+                 for ln in stdout.splitlines() if ln.startswith("TILEJOB ")]
+    return recs
+
+
+def _prepared_store(tmp_path):
+    """A scene and a store holding the prepare.pkl of a fit on the CPU."""
+    img, _ = voronoi_image(np.random.default_rng(3), shape=(200, 220),
+                           ncentres=30, noise=6)
+    inpath = str(tmp_path / "in.npseg")
+    write_raster(inpath, img)
+    store = str(tmp_path / "prepared")
+    _finish([_batch_job("do_prepare.py", [
+        "--infile", inpath, "--store", "file://" + store, "--tilesize",
+        "128", "--overlapsize", "32", "--nclusters", "12",
+        "--fixedkmeansinit", "--device", "cpu"])])
+    return store
+
+
+def test_batch_on_card_equals_cpu_under_shared_state(tmp_path):
+    """One prepare.pkl (fitted on the CPU), its four tile jobs and the
+    stitch with stats run with --device cuda and with --device cpu: the
+    segment band and every RAT column are equal bit for bit, and every
+    card job ran K1 once and K2."""
+    need_cuda()
+    import os
+    import shutil
+    from pyshepseg_tpu_torch import io as rio
+    prepared = _prepared_store(tmp_path)
+    outputs = {}
+    for device in ("cuda", "cpu"):
+        store = str(tmp_path / device)
+        shutil.copytree(prepared, store)
+        recs = _finish([_batch_job("do_tile.py", [
+            "--store", "file://" + store, "--index", str(i), "--minsegmentsize",
+            "20", "--device", device]) for i in range(4)])
+        assert sorted(rec["index"] for rec in recs) == [0, 1, 2, 3]
+        for rec in recs:
+            assert rec["device"].startswith(device)
+            if device == "cuda":
+                assert rec["launches"]["local_ccl"] == 1
+                assert rec["launches"]["lut_gather"] >= 1
+                assert rec["seconds"]["cudainit"] > 0
+            else:
+                assert rec["launches"] == {"local_ccl": 0, "lut_gather": 0}
+        _finish([_batch_job("do_stitch.py", [
+            "--store", "file://" + store, "--statsbands", "1,2", "--device",
+            device])])
+        out = os.path.join(store, "segmentation.npseg")
+        rat = rio.open(out).GetRasterBand(1).GetDefaultRAT()
+        outputs[device] = (read_output(out)[0], {
+            rat.GetNameOfCol(i): np.asarray(rat.ReadAsArray(i))
+            for i in range(rat.GetColumnCount())})
+    seg, cols = outputs["cuda"]
+    seg0, cols0 = outputs["cpu"]
+    assert seg.max() > 1
+    np.testing.assert_array_equal(seg, seg0)
+    assert set(cols) == set(cols0) >= {"Histogram", "Band_2_stddev"}
+    for name in cols:
+        np.testing.assert_array_equal(cols[name], cols0[name])
+
+
+def test_concurrent_cold_tile_jobs_build_the_library(tmp_path, monkeypatch):
+    """Two tile jobs started together with no built kernel library: both
+    exit 0 with equal results to a later warm job's, at least one compiled,
+    and the library they leave loads and launches."""
+    need_cuda()
+    import os
+    from pyshepseg_tpu_torch import _kernels, io as rio
+    store = _prepared_store(tmp_path)
+    _kernels.lib()
+    os.remove(_kernels.LIB_PATH)
+    cold = _finish([_batch_job("do_tile.py", [
+        "--store", "file://" + store, "--index", str(i), "--device", "cuda"])
+        for i in (0, 1)])
+    assert sorted(rec["index"] for rec in cold) == [0, 1]
+    assert max(rec["seconds"]["build"] for rec in cold) > 0
+    assert os.path.exists(_kernels.LIB_PATH)
+    leftovers = [f for f in os.listdir(_kernels.BUILD_DIR) if ".tmp" in f]
+    assert leftovers == []
+
+    def tile(rec):
+        return rio.open(os.path.join(store, "tile_%d_%d.npseg" % (
+            rec["col"], rec["row"]))).GetRasterBand(1).ReadAsArray()
+
+    coldTiles = {rec["index"]: tile(rec) for rec in cold}
+    warm = _finish([_batch_job("do_tile.py", [
+        "--store", "file://" + store, "--index", str(i), "--device", "cuda"])
+        for i in (0, 1)])
+    for rec in warm:
+        assert rec["seconds"]["build"] == 0
+        np.testing.assert_array_equal(tile(rec), coldTiles[rec["index"]])
+    # this process loads the library the jobs left, and launches from it
+    monkeypatch.setattr(_kernels, "_lib", None)
+    img = torch.from_numpy(padded_clusters(
+        np.random.default_rng(5), (250, 380), 128)).cuda()
+    assert torch.equal(local_ccl.local_ccl_blocks(img, 0, True),
+                       local_ccl.local_ccl_blocks_reference(img, 0, True))

@@ -9,7 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from pyshepseg_tpu import shepseg as jax_shepseg
+from pyshepseg_tpu.ops import kmeans as jax_kmeans
 from pyshepseg_tpu_torch import shepseg
 from pyshepseg_tpu_torch.ops.kmeans import kmeansFromReference
 from torch_parity import voronoi_image
@@ -21,8 +25,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     (True, None, 50), (True, 65535, 1), (False, None, 1),
     (False, 65535, 50)])
 def test_segmentation_matches_jax(four_connected, null, min_size):
-    # a seed whose cluster scores hold no float32 tie: at a tie the two
-    # packages may assign a pixel differently (see test_torch_kmeans)
+    # a seed where no pixel's two nearest centres are closer together
+    # than the float32 rounding of the scores: there the two packages may
+    # assign a pixel differently (the assignment contract below)
     rng = np.random.default_rng(0)
     img, _ = voronoi_image(rng)
     if null is not None:
@@ -44,6 +49,136 @@ def test_segmentation_matches_jax(four_connected, null, min_size):
         assert got.smallSegmentsEliminated == 0
     if null is not None:
         assert (got.segimg[:6, :9] == 0).all()
+
+
+# ---- the assignment contract
+#
+# Both packages pick a pixel's cluster as the argmin over the centres of
+# the float32 score s_k = 0.5*|c_k|^2 - x.c_k, which orders the centres as
+# the squared distance d_k^2 = |x|^2 + 2*s_k does. Its two terms are far
+# larger than their difference and cancel, and each package rounds them
+# its own way (XLA's jitted CPU product, PyTorch's CPU product, cuBLAS on
+# the card), so two centres whose squared distances differ by less than
+# the rounding of the scores may be ordered either way. That is not only
+# an exact tie: for offset or large-valued data it is a gap of percents.
+# With u = 2^-24 and n bands, a float32 dot product of n terms is within
+# n*u*sum|x_b*c_b| of the exact one, 0.5*|c|^2 within n*u*0.5*|c|^2, and
+# the subtraction adds u*|s|: each score is within
+#     (n + 1) * u * A_k,   A_k = 0.5*|c_k|^2 + sum_b |x_b * c_kb|
+# of its exact value. One package can order centres i and j wrongly only
+# where |s_i - s_j| <= (n + 1)*u*(A_i + A_j), that is where
+#     |d_i^2 - d_j^2| <= 2 * (n + 1) * u * (A_i + A_j).
+# The contract: wherever the two packages' cluster images differ, each
+# took one of the pixel's two nearest centres (in float64) and those two
+# squared distances differ by less than that bound. From an identical
+# cluster image everything downstream is equal bit for bit.
+#
+# Of the cases below, float32 imagery at seed 0 is where the two packages
+# differ on this CPU: 38 pixels, whose two nearest centres lie 0.06-0.10
+# squared units away and up to 0.0055 apart (the bound there is 0.04), and
+# 3168 segment pixels differ end to end if each package keeps its own
+# assignment. The other cases assign every pixel alike.
+
+# (seed, noise of voronoi_image)
+SCENES = [(0, 2), (1, 8), (2, 30), (3, 60)]
+
+
+def _float32_imagery(img):
+    return (img / 7.0).astype(np.float32), None
+
+
+def _int16_negative_null(img):
+    out = (img.astype(np.int32) - 500).astype(np.int16)
+    out[:, :5, :7] = -999
+    return out, -999
+
+
+# variant -> (image transform giving (img, imgNullVal), extra arguments)
+VARIANTS = {
+    "uint16": (lambda img: (img, None), {}),
+    "float32": (_float32_imagery, {}),
+    "int16_null": (_int16_negative_null, {}),
+    "one_band": (lambda img: (img[:1], None), {}),
+    "maxdiff40_8conn": (lambda img: (img, None),
+                        dict(maxSpectralDiff=40, fourConnected=False)),
+    "pcntile25": (lambda img: (img, None), dict(spectDistPcntile=25)),
+}
+
+
+def assert_within_score_rounding(got, want, img, centers, what):
+    """``got`` and ``want`` are cluster images (ids from 1, 0 null) of
+    ``img`` under ``centers``. Returns the number of pixels that differ,
+    after holding each to the contract above."""
+    rows, cols = np.nonzero(got != want)
+    nbands = img.shape[0]
+    c = centers.astype(np.float64)
+    u = 2.0 ** -24
+    for r, q in zip(rows, cols):
+        x = img[:, r, q].astype(np.float64)
+        d2 = ((c - x) ** 2).sum(axis=1)
+        first, second = np.argsort(d2, kind="stable")[:2]
+        assert {int(got[r, q]) - 1, int(want[r, q]) - 1} == {first, second}, (
+            "%s: pixel (%d, %d) went to a centre that is not one of its "
+            "two nearest" % (what, r, q))
+        amp = sum(0.5 * (c[k] ** 2).sum() + np.abs(x * c[k]).sum()
+                  for k in (first, second))
+        bound = 2 * (nbands + 1) * u * amp
+        assert d2[second] - d2[first] < bound, (
+            "%s: pixel (%d, %d): squared distances %r and %r differ by "
+            "more than the scores' float32 rounding %r"
+            % (what, r, q, d2[first], d2[second], bound))
+    return len(rows)
+
+
+@pytest.mark.parametrize("seed,noise", SCENES)
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_assignment_contract_and_downstream_equality(variant, seed, noise,
+                                                     monkeypatch):
+    transform, extra = VARIANTS[variant]
+    # 12 cells into 10 clusters: some clusters hold two colours, so their
+    # borders pass near the data
+    base, _ = voronoi_image(np.random.default_rng(seed), shape=(64, 72),
+                            noise=noise)
+    img, null = transform(base)
+    kw = dict(numClusters=10, clusterSubsamplePcnt=50, minSegmentSize=10,
+              imgNullVal=null, **extra)
+    want = jax_shepseg.doShepherdSegmentation(img, fixedKMeansInit=True,
+                                              **kw)
+    km = kmeansFromReference(want.kmeans, device="cpu")
+    centers = np.asarray(want.kmeans.cluster_centers_, dtype=np.float32)
+
+    # the assignment: the port's one arithmetic against the JAX package's
+    # two (applySpectralClusters' point-major product, and the band-major
+    # one of the segmentation itself, jitted as it runs there)
+    port = shepseg.applySpectralClusters(km, img, null, device="cpu")
+    jaxApply = jax_shepseg.applySpectralClusters(want.kmeans, img, null)
+    hasNull = null is not None
+    jaxAssign = np.asarray(jax.jit(
+        jax_kmeans.assign_clusters, static_argnames="has_null")(
+            jnp.asarray(img), jnp.asarray(centers),
+            jax_kmeans.null_scalar(null if hasNull else 0, img.dtype),
+            has_null=hasNull))
+    assert port.dtype == jaxApply.dtype == np.uint32
+    np.testing.assert_array_equal(port == 0, jaxAssign == 0)
+    assert_within_score_rounding(port, jaxApply, img, centers,
+                                 "against applySpectralClusters")
+    assert_within_score_rounding(port, jaxAssign, img, centers,
+                                 "against assign_clusters")
+
+    # downstream of an identical cluster image (the JAX package's, handed
+    # to the port in place of its own assignment): clump, both
+    # eliminations, relabel, counts and maxSpectralDiff, bit for bit
+    monkeypatch.setattr(
+        shepseg, "assign_clusters",
+        lambda *args: torch.from_numpy(jaxAssign.astype(np.int32)))
+    got = shepseg.doShepherdSegmentation(img, kmeansObj=km, device="cpu",
+                                         **kw)
+    np.testing.assert_array_equal(got.segimg, want.segimg)
+    assert got.singlePixelsEliminated == want.singlePixelsEliminated
+    assert got.smallSegmentsEliminated == want.smallSegmentsEliminated
+    assert got.maxSpectralDiff == want.maxSpectralDiff
+    if hasNull:
+        assert (got.segimg[:5, :7] == 0).all()
 
 
 def test_fits_its_own_kmeans_and_tensor_input():
