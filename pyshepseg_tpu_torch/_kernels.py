@@ -23,6 +23,8 @@ import time
 
 import torch
 
+from . import timinghooks
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build",
@@ -152,11 +154,13 @@ def check(code, name):
 
 
 def count(fn, attr="launches", n=1):
-    """Add ``n`` (one by default) to the counter ``fn.<attr>``. Under a
-    lock: the tiled driver's worker threads launch kernels concurrently,
-    and a bare ``+= 1`` could lose an update."""
+    """Add ``n`` (one by default) to the counter ``fn.<attr>``, and to the
+    trace's count ``<function>.<attr>`` while a profiler session runs
+    (timinghooks). Under a lock: the tiled driver's worker threads launch
+    kernels concurrently, and a bare ``+= 1`` could lose an update."""
     with _count_lock:
         setattr(fn, attr, getattr(fn, attr) + n)
+    timinghooks.count(fn.__name__ + "." + attr, n)
 
 
 def stream_ptr(t):

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from .. import timinghooks
 from . import lut
 from .constants import SegIdType, SEGNULLVAL, MINSEGID
 from .shifts import shift, offsets_for
@@ -167,6 +168,9 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
     ``seg_size`` (int64) and ``spect_sum`` ((capacity, nBands)) are
     indexed by current id.
 
+    The loop is an ``elim_small.graph_loop`` span and each pass an
+    ``elim_small.pass`` span in it (timinghooks).
+
     Returns (remap original->current id (int64), seg_size (int64),
     numEliminated, totalPasses).
     """
@@ -182,18 +186,21 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
 
     num_elim = 0
     total_passes = 0
-    for target in range(1, min_seg_size):
-        count = to_host((size == target).sum())
-        prev = -1
-        passes = 0
-        while count > 0 and count != prev and passes < 10:
-            remap, size, sums, n = _merge_pass_edges(
-                ids2, remap, size, sums, target, max_diff_sqr)
-            prev = count
-            count, n = to_host(torch.stack([(size == target).sum(), n]))
-            num_elim += n
-            passes += 1
-        total_passes += passes
+    with timinghooks.span("elim_small.graph_loop"):
+        for target in range(1, min_seg_size):
+            count = to_host((size == target).sum())
+            prev = -1
+            passes = 0
+            while count > 0 and count != prev and passes < 10:
+                with timinghooks.span("elim_small.pass"):
+                    remap, size, sums, n = _merge_pass_edges(
+                        ids2, remap, size, sums, target, max_diff_sqr)
+                    prev = count
+                    count, n = to_host(
+                        torch.stack([(size == target).sum(), n]))
+                num_elim += n
+                passes += 1
+            total_passes += passes
     return remap, size, num_elim, total_passes
 
 

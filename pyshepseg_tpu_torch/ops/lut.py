@@ -24,6 +24,7 @@ over table rows and has no counterpart here. K2 has two routes, chosen by
 import torch
 
 from .. import _kernels
+from .. import timinghooks
 
 # The staged route is taken from this reuse n / c and this table size on
 # (and when the table fits shared memory): below either the direct route
@@ -128,6 +129,11 @@ def lut_gather(idx, table, route=None):
     _kernels.check(code, "lut_gather")
     _kernels.count(lut_gather)
     _kernels.count(lut_gather, route + "_launches")
+    # the bytes K2 must move: its indices read, its output written, the
+    # table read once
+    timinghooks.count("lut_gather.bytes", n * (idx.element_size() +
+                                               table.element_size()) +
+                      c * table.element_size())
     return out
 
 

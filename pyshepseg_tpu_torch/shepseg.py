@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from . import timinghooks
 from .ops.constants import SegIdType, SEGNULLVAL, MINSEGID  # noqa: F401
 from .ops.clump import clump, clump_labels  # noqa: F401
 from .ops.segreduce import (  # noqa: F401
@@ -82,6 +83,7 @@ def segment_on_device(img_dev, centers, nullVal, hasNull, maxSpectralDiff,
     centres on the same device, ``nullVal`` the null value as a number of
     the image's own type (unused when ``hasNull`` is False) and
     ``maxSpectralDiff`` a resolved number (:func:`autoMaxSpectralDiff`).
+    Each stage is a ``shepseg.<stage>`` span (timinghooks).
 
     :func:`doShepherdSegmentation` is the k-means fit, this function and
     the download of its result; ``parallel.pipeline.segment_tile`` is this
@@ -89,50 +91,52 @@ def segment_on_device(img_dev, centers, nullVal, hasNull, maxSpectralDiff,
 
     Returns (seg int32 tensor (H, W), ids 1..maxSegId in scan order and 0
     for null, and a dict: ``maxSegId`` (a 0-dim tensor on the device),
-    ``numClumps``, ``clumpSweeps``, ``numAfterSingle``, ``numElimSmall``,
-    ``elimPasses`` (Python ints) and ``clumpDone`` (time.time() when the
-    clump stage had ended)).
+    ``numClumps``, ``clumpSweeps``, ``numAfterSingle``, ``numElimSmall``
+    and ``elimPasses`` (Python ints)).
     """
     device = img_dev.device
     # cluster and clump (the JAX package's _cluster_and_clump_device)
-    clusters = assign_clusters(img_dev, centers, nullVal, hasNull)
-    seg_clump, numClumps, clumpSweeps = clump_labels(
-        clusters, SEGNULLVAL, four_connected=fourConnected,
-        two_level=clump_two_level)
-    clumpDone = time.time()
+    with timinghooks.span("shepseg.assign"):
+        clusters = assign_clusters(img_dev, centers, nullVal, hasNull)
+    with timinghooks.span("shepseg.clump"):
+        seg_clump, numClumps, clumpSweeps = clump_labels(
+            clusters, SEGNULLVAL, four_connected=fourConnected,
+            two_level=clump_two_level)
 
     # the JAX package's _elim_fused_device, as sequential calls
     capacity = numClumps + 1
-    img_f = img_dev.to(torch.float32)
-    seg, _, _ = eliminate_single_pixels_device(
-        img_f, seg_clump, None, fourConnected, do_relabel=False)
-    planes = band_planes(img_dev)
-    size, spect = seg_sizes_and_spectral_sums_planes(seg, planes, capacity)
-    nAfterSingle = to_host(torch.count_nonzero(size[MINSEGID:]))
+    with timinghooks.span("shepseg.single_pixels"):
+        img_f = img_dev.to(torch.float32)
+        seg, _, _ = eliminate_single_pixels_device(
+            img_f, seg_clump, None, fourConnected, do_relabel=False)
+    with timinghooks.span("shepseg.sums"):
+        planes = band_planes(img_dev)
+        size, spect = seg_sizes_and_spectral_sums_planes(seg, planes,
+                                                         capacity)
+        nAfterSingle = to_host(torch.count_nonzero(size[MINSEGID:]))
     numElimSmall, elimPasses = 0, 0
+    remap = torch.arange(capacity, device=device)
     if minSegmentSize > 1:
         # The graph loop runs on the CLUMP image's edges, seeded with the
         # clump -> post-single-pixel id map: single-pixel merges only
         # contract the adjacency graph, and contracted duplicate pairs
         # are harmless (a pass min-reduces per pair). Every pixel of a
         # clump carries the same new id, so a scatter builds the map.
-        a, b, first, _ = edge_sort_keys(seg_clump, fourConnected)
-        ea, eb = compact_edges(a, b, first)
-        remap0 = torch.arange(capacity, device=device).scatter_(
-            0, seg_clump.reshape(-1).long(), seg.reshape(-1).long())
+        with timinghooks.span("shepseg.edges"):
+            a, b, first, _ = edge_sort_keys(seg_clump, fourConnected)
+            ea, eb = compact_edges(a, b, first)
+            remap0 = remap.scatter_(
+                0, seg_clump.reshape(-1).long(), seg.reshape(-1).long())
         remap, size, numElimSmall, elimPasses = (
             eliminate_small_segments_graph(
                 ea, eb, size, spect, minSegmentSize, maxSpectralDiff,
                 remap_init=remap0))
+    with timinghooks.span("shepseg.relabel"):
         seg = _remap_and_relabel(seg, remap, size)
-    else:
-        seg = _remap_and_relabel(
-            seg, torch.arange(capacity, device=device), size)
     info = dict(maxSegId=torch.count_nonzero(size[MINSEGID:]),
                 numClumps=int(numClumps), clumpSweeps=int(clumpSweeps),
                 numAfterSingle=int(nAfterSingle),
-                numElimSmall=int(numElimSmall), elimPasses=int(elimPasses),
-                clumpDone=clumpDone)
+                numElimSmall=int(numElimSmall), elimPasses=int(elimPasses))
     return seg, info
 
 
@@ -152,48 +156,56 @@ def doShepherdSegmentation(img, numClusters=60, clusterSubsamplePcnt=1,
     ``kmeansObj`` is supplied with a tensor image, the image is copied to
     the host once for the k-means fit.
 
+    The call is a ``shepseg.call`` span (timinghooks) whose unit of work
+    is an enclosing unit's (a tile's) or the call's own number.
+
     Returns a SegmentationResult. Segment IDs start from 1; 0 is null.
     """
-    t0 = time.time()
-    if isinstance(img, torch.Tensor):
-        device = img.device
-        img_np = None if kmeansObj is not None else img.cpu().numpy()
-        np_dtype = torch.empty((), dtype=img.dtype).numpy().dtype
-    else:
-        img = img_np = np.ascontiguousarray(img)
-        np_dtype = img.dtype
-    device = _kernels.torch_device(device)
-    img_dev = image_tensor(img, device)
-    if kmeansObj is not None:
-        km = kmeansObj
-    else:
-        km = fitSpectralClusters(img_np, numClusters, clusterSubsamplePcnt,
-                                 imgNullVal, fixedKMeansInit, device=device)
-    centers = torch.tensor(np.asarray(km.cluster_centers_,
-                                      dtype=np.float32), device=device)
-    hasNull = imgNullVal is not None
-    nullVal = null_scalar(imgNullVal if hasNull else 0, np_dtype)
-    maxSpectralDiff = autoMaxSpectralDiff(km, maxSpectralDiff,
-                                          spectDistPcntile)
+    with timinghooks.unit(), timinghooks.span("shepseg.call"):
+        t0 = time.perf_counter()
+        if isinstance(img, torch.Tensor):
+            device = img.device
+            img_np = None if kmeansObj is not None else img.cpu().numpy()
+            np_dtype = torch.empty((), dtype=img.dtype).numpy().dtype
+        else:
+            img = img_np = np.ascontiguousarray(img)
+            np_dtype = img.dtype
+        device = _kernels.torch_device(device)
+        with timinghooks.span("shepseg.upload"):
+            img_dev = image_tensor(img, device)
+        if kmeansObj is not None:
+            km = kmeansObj
+        else:
+            km = fitSpectralClusters(img_np, numClusters,
+                                     clusterSubsamplePcnt, imgNullVal,
+                                     fixedKMeansInit, device=device)
+        centers = torch.tensor(np.asarray(km.cluster_centers_,
+                                          dtype=np.float32), device=device)
+        hasNull = imgNullVal is not None
+        nullVal = null_scalar(imgNullVal if hasNull else 0, np_dtype)
+        maxSpectralDiff = autoMaxSpectralDiff(km, maxSpectralDiff,
+                                              spectDistPcntile)
+        tFit = time.perf_counter()
 
-    seg, info = segment_on_device(
-        img_dev, centers, nullVal, hasNull, maxSpectralDiff,
-        int(minSegmentSize), bool(fourConnected))
-    maxSegId, clumpSweeps = info["numClumps"], info["clumpSweeps"]
-    numElimSmall, elimPasses = info["numElimSmall"], info["elimPasses"]
-    # int32 ids are non-negative: reinterpret, no host copy
-    segimg = seg.to(torch.int32).cpu().numpy().view(SegIdType)
-    numElimSinglepix = maxSegId - info["numAfterSingle"]
-    if verbose:
-        print("Kmeans plus clump found", maxSegId, "clumps, in",
-              round(info["clumpDone"] - t0, 1), "seconds,", clumpSweeps,
-              "propagation sweeps")
-        print("Eliminated", numElimSinglepix, "single pixels and",
-              numElimSmall, "small segments in", elimPasses,
-              "graph passes, in", round(time.time() - info["clumpDone"], 1),
-              "seconds")
-        print("Final result has", int(segimg.max()) if segimg.size else 0,
-              "segments")
+        seg, info = segment_on_device(
+            img_dev, centers, nullVal, hasNull, maxSpectralDiff,
+            int(minSegmentSize), bool(fourConnected))
+        maxSegId, clumpSweeps = info["numClumps"], info["clumpSweeps"]
+        numElimSmall, elimPasses = info["numElimSmall"], info["elimPasses"]
+        # int32 ids are non-negative: reinterpret, no host copy
+        with timinghooks.span("shepseg.download"):
+            segimg = seg.to(torch.int32).cpu().numpy().view(SegIdType)
+        numElimSinglepix = maxSegId - info["numAfterSingle"]
+        if verbose:
+            print("Kmeans found", len(km.cluster_centers_), "centres, in",
+                  round(tFit - t0, 1), "seconds; clump found", maxSegId,
+                  "clumps,", clumpSweeps, "propagation sweeps")
+            print("Eliminated", numElimSinglepix, "single pixels and",
+                  numElimSmall, "small segments in", elimPasses,
+                  "graph passes; clump and eliminations in",
+                  round(time.perf_counter() - tFit, 1), "seconds")
+            print("Final result has",
+                  int(segimg.max()) if segimg.size else 0, "segments")
 
     segResult = SegmentationResult()
     segResult.segimg = segimg

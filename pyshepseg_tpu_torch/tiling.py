@@ -329,7 +329,8 @@ def doTiledShepherdSegmentation(infile, outfile, tileSize=DFLT_TILESIZE,
 
     with concurrencyMgr.timings.interval('walltime'):
         try:
-            concurrencyMgr.initialize()
+            with timinghooks.span('tiling.initialize'):
+                concurrencyMgr.initialize()
             concurrencyMgr.segmentAllTiles()
         finally:
             concurrencyMgr.shutdown()
@@ -752,7 +753,8 @@ class SegmentationConcurrencyMgr:
         if cfg == 'auto' and not DeviceSceneCache.fitsOnDevice(
                 inDs, self.bandNumbers, self.device):
             return
-        with self.timings.interval('reading'):
+        with (self.timings.interval('reading'),
+              timinghooks.span('tiling.scenecache')):
             self.sceneCache = DeviceSceneCache(inDs, self.bandNumbers,
                                                self.device, self.verbose)
 
@@ -897,75 +899,9 @@ class SegmentationConcurrencyMgr:
             if self.verbose and row != reportedRow:
                 print("Stitching tile row {}".format(row))
                 reportedRow = row
-
-            # 'stitchwait' separates time spent WAITING for the tile
-            # (worker compute/transfer, or the temp-file load) from the
-            # stitcher's own recode/write work, so timing reports show
-            # whether the pipelined stitch is the bottleneck
-            with self.timings.interval('stitchwait'):
-                tileData = self.getTileSegmentation(col, row)
-            if tileData is None:
-                self.checkWorkerExceptions()
-                raise PyShepSegTilingError(
-                    "Gave up waiting for tile ({}, {}) after {} seconds "
-                    "with no worker error reported; raise "
-                    "tileCompletionTimeout if workers are just slow".format(
-                        col, row,
-                        self.concurrencyCfg.tileCompletionTimeout))
-
-            (top, bottom, left, right, xout, yout, rightOv, bottomOv) = (
-                self.tileStitchGeometry(col, row))
-
-            winHist = None
-            if self.simpleTileRecode:
-                nullmask = (tileData == shepseg.SEGNULLVAL)
-                tileData = tileData + shepseg.SegIdType(maxSegId)
-                tileData[nullmask] = shepseg.SEGNULLVAL
-                tileDataTrimmed = tileData[top:bottom, left:right]
-                rightStrip = tileData[:, -rightOv:] if rightOv > 0 else None
-                bottomStrip = (tileData[-bottomOv:, :] if bottomOv > 0
-                               else None)
-                updateMaxFromTile = True
-            else:
-                # The relabel's assignment counter is authoritative (it
-                # covers every ID it issued or preserved), so no
-                # per-tile max() scan is needed on this path. Only the
-                # regions the stitcher consumes are gathered through the
-                # mapping — the trimmed window and the cached strips —
-                # never a full relabelled tile (the stitch leg is
-                # host-memory-bandwidth-bound; see relabelMapping).
-                recodeDict = self._buildRecodeDict(tileData, row, col)
-                (mapping, maxSegId, winHist) = self.relabelMapping(
-                    tileData, recodeDict, maxSegId, top, bottom, left,
-                    right)
-                tileDataTrimmed = mapping[tileData[top:bottom,
-                                                   left:right]]
-                rightStrip = (mapping[tileData[:, -rightOv:]]
-                              if rightOv > 0 else None)
-                bottomStrip = (mapping[tileData[-bottomOv:, :]]
-                               if bottomOv > 0 else None)
-                updateMaxFromTile = False
-
-            outBand.WriteArray(tileDataTrimmed, xout, yout)
-            self.writeOverviews(outBand, tileDataTrimmed, xout, yout)
-            if winHist is not None:
-                # derived by the relabel from counts it already had —
-                # skips a second full-window bincount per tile
-                histAccum.updateHist(winHist)
-            else:
-                histAccum.doHistAccum(tileDataTrimmed)
-
-            if rightStrip is not None:
-                self.saveOverlap(
-                    self.overlapCacheKey(col, row, RIGHT_OVERLAP),
-                    rightStrip)
-            if bottomStrip is not None:
-                self.saveOverlap(
-                    self.overlapCacheKey(col, row, BOTTOM_OVERLAP),
-                    bottomStrip)
-
-            if updateMaxFromTile:
-                maxSegId = max(maxSegId, int(tileDataTrimmed.max()))
+            with timinghooks.unit((col, row)):
+                maxSegId = self._stitchTile(col, row, maxSegId, outBand,
+                                            histAccum)
 
         # One-off epilogue — the histogram RAT write, the empty-segment
         # check, the GDAL stats metadata, and the output flush (an msync
@@ -984,6 +920,84 @@ class SegmentationConcurrencyMgr:
             self.outDs = outDs
         else:
             del outDs
+
+    def _stitchTile(self, col, row, maxSegId, outBand, histAccum):
+        """Stitch one tile into the output (stitchTiles' loop body), as
+        the ``stitch.*`` spans (timinghooks); returns the new maxSegId."""
+        # 'stitchwait' separates time spent WAITING for the tile
+        # (worker compute/transfer, or the temp-file load) from the
+        # stitcher's own recode/write work, so timing reports show
+        # whether the pipelined stitch is the bottleneck
+        with self.timings.interval('stitchwait'):
+            tileData = self.getTileSegmentation(col, row)
+        if tileData is None:
+            self.checkWorkerExceptions()
+            raise PyShepSegTilingError(
+                "Gave up waiting for tile ({}, {}) after {} seconds "
+                "with no worker error reported; raise "
+                "tileCompletionTimeout if workers are just slow".format(
+                    col, row,
+                    self.concurrencyCfg.tileCompletionTimeout))
+
+        (top, bottom, left, right, xout, yout, rightOv, bottomOv) = (
+            self.tileStitchGeometry(col, row))
+
+        winHist = None
+        if self.simpleTileRecode:
+            nullmask = (tileData == shepseg.SEGNULLVAL)
+            tileData = tileData + shepseg.SegIdType(maxSegId)
+            tileData[nullmask] = shepseg.SEGNULLVAL
+            tileDataTrimmed = tileData[top:bottom, left:right]
+            rightStrip = tileData[:, -rightOv:] if rightOv > 0 else None
+            bottomStrip = (tileData[-bottomOv:, :] if bottomOv > 0
+                           else None)
+            updateMaxFromTile = True
+        else:
+            # The relabel's assignment counter is authoritative (it
+            # covers every ID it issued or preserved), so no
+            # per-tile max() scan is needed on this path. Only the
+            # regions the stitcher consumes are gathered through the
+            # mapping — the trimmed window and the cached strips —
+            # never a full relabelled tile (the stitch leg is
+            # host-memory-bandwidth-bound; see relabelMapping).
+            with timinghooks.span('stitch.recode'):
+                recodeDict = self._buildRecodeDict(tileData, row, col)
+            with timinghooks.span('stitch.mapping'):
+                (mapping, maxSegId, winHist) = self.relabelMapping(
+                    tileData, recodeDict, maxSegId, top, bottom, left,
+                    right)
+            with timinghooks.span('stitch.gather'):
+                tileDataTrimmed = mapping[tileData[top:bottom,
+                                                   left:right]]
+                rightStrip = (mapping[tileData[:, -rightOv:]]
+                              if rightOv > 0 else None)
+                bottomStrip = (mapping[tileData[-bottomOv:, :]]
+                               if bottomOv > 0 else None)
+            updateMaxFromTile = False
+
+        with timinghooks.span('stitch.write'):
+            outBand.WriteArray(tileDataTrimmed, xout, yout)
+            self.writeOverviews(outBand, tileDataTrimmed, xout, yout)
+        with timinghooks.span('stitch.histogram'):
+            if winHist is not None:
+                # derived by the relabel from counts it already had —
+                # skips a second full-window bincount per tile
+                histAccum.updateHist(winHist)
+            else:
+                histAccum.doHistAccum(tileDataTrimmed)
+
+        if rightStrip is not None:
+            self.saveOverlap(
+                self.overlapCacheKey(col, row, RIGHT_OVERLAP),
+                rightStrip)
+        if bottomStrip is not None:
+            self.saveOverlap(
+                self.overlapCacheKey(col, row, BOTTOM_OVERLAP),
+                bottomStrip)
+
+        if updateMaxFromTile:
+            maxSegId = max(maxSegId, int(tileDataTrimmed.max()))
+        return maxSegId
 
     def recodeTile(self, tileData, maxSegId, tileRow, tileCol,
             top, bottom, left, right):
@@ -1243,19 +1257,20 @@ class SegNoConcurrencyMgr(SegmentationConcurrencyMgr):
                 print("\nDoing tile {} of {}: row={}, col={}".format(
                     tileNum, len(colRowList), row, col))
 
-            with self.timings.interval('reading'):
-                img = self.readTileImage(inDs, col, row)
+            with timinghooks.unit((col, row)):
+                with self.timings.interval('reading'):
+                    img = self.readTileImage(inDs, col, row)
 
-            with self.timings.interval('segmentation'):
-                segResult = shepseg.doShepherdSegmentation(
-                    img, minSegmentSize=self.minSegmentSize,
-                    maxSpectralDiff=self.maxSpectralDiff,
-                    imgNullVal=self.imgNullVal,
-                    fourConnected=self.fourConnected,
-                    kmeansObj=self.kmeansObj,
-                    verbose=self.verbose,
-                    spectDistPcntile=self.spectDistPcntile,
-                    device=self.device)
+                with self.timings.interval('segmentation'):
+                    segResult = shepseg.doShepherdSegmentation(
+                        img, minSegmentSize=self.minSegmentSize,
+                        maxSpectralDiff=self.maxSpectralDiff,
+                        imgNullVal=self.imgNullVal,
+                        fourConnected=self.fourConnected,
+                        kmeansObj=self.kmeansObj,
+                        verbose=self.verbose,
+                        spectDistPcntile=self.spectDistPcntile,
+                        device=self.device)
 
             filename = os.path.join(self.tempDir,
                                     'tile_{}_{}.npy'.format(col, row))
@@ -1353,23 +1368,25 @@ class SegThreadsMgr(SegmentationConcurrencyMgr):
                 while colRow is not None and not self.forceExit.is_set():
                     (col, row) = colRow
 
-                    with self.timings.interval('reading'):
-                        img = self.readTileImage(inDs, col, row,
-                                                 self.readSemaphore)
-                        if isinstance(img, torch.Tensor):
-                            # a scene-cache slice, to this worker's card
-                            img = img.to(device)
+                    with timinghooks.unit((col, row)):
+                        with self.timings.interval('reading'):
+                            img = self.readTileImage(inDs, col, row,
+                                                     self.readSemaphore)
+                            if isinstance(img, torch.Tensor):
+                                # a scene-cache slice, to this worker's
+                                # card
+                                img = img.to(device)
 
-                    with self.timings.interval('segmentation'):
-                        segResult = shepseg.doShepherdSegmentation(
-                            img, minSegmentSize=self.minSegmentSize,
-                            maxSpectralDiff=self.maxSpectralDiff,
-                            imgNullVal=self.imgNullVal,
-                            fourConnected=self.fourConnected,
-                            kmeansObj=self.kmeansObj,
-                            verbose=self.verbose,
-                            spectDistPcntile=self.spectDistPcntile,
-                            device=device)
+                        with self.timings.interval('segmentation'):
+                            segResult = shepseg.doShepherdSegmentation(
+                                img, minSegmentSize=self.minSegmentSize,
+                                maxSpectralDiff=self.maxSpectralDiff,
+                                imgNullVal=self.imgNullVal,
+                                fourConnected=self.fourConnected,
+                                kmeansObj=self.kmeansObj,
+                                verbose=self.verbose,
+                                spectDistPcntile=self.spectDistPcntile,
+                                device=device)
 
                     self.segResultCache.addResult(col, row, segResult)
                     colRow = self.popFromQue(self.inQue)

@@ -397,6 +397,11 @@ class SegmentHistAccumulator:
         on worker threads (the per-tile lexsort is the stats pass's
         dominant cost) while this cheap sequential merge keeps the
         streaming completeness semantics.
+
+        While a profiler session runs, counts in the trace (timinghooks)
+        the runs the compaction delivered (``tilingstats.merge.delivered``)
+        and the runs the lexsort below orders, held and new
+        (``tilingstats.merge.sorted``).
         """
         if compacted is None:
             return
@@ -405,10 +410,13 @@ class SegmentHistAccumulator:
         self.seen += seen
         if noData is not None:
             self.noData += noData
+        timinghooks.count("tilingstats.merge.delivered", newSeg.size)
         if newSeg.size == 0:
             return
 
         # merge two sorted run lists
+        timinghooks.count("tilingstats.merge.sorted",
+                          self.segIds.size + newSeg.size)
         allSeg = numpy.concatenate([self.segIds, newSeg])
         allVal = numpy.concatenate([self.values, newVal])
         allCnt = numpy.concatenate([self.counts, newCounts])
@@ -967,7 +975,8 @@ def _calcStatsForCompletedSegs(acc, segSize, missingStatsValue, pagedRat,
     segIdList = acc.completedSegments(segSize)
     if len(segIdList) == 0:
         return
-    vals, counts, start, end, noData = acc.extractSegments(segIdList)
+    with timinghooks.span("tilingstats.extract"):
+        vals, counts, start, end, noData = acc.extractSegments(segIdList)
 
     numStats = statsSelection_fast.shape[0]
     statVals = []

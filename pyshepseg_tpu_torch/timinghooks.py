@@ -1,22 +1,47 @@
 """
-Timing hooks: a thread-safe, pickleable collector of named time intervals
-(counterpart: pyshepseg_tpu/timinghooks.py; reference:
-pyshepseg/timinghooks.py). Used throughout the tiling drivers to time
-phases like 'reading', 'segmentation', 'stitchtiles'; worker processes
-pickle their Timers back to the coordinator, which merges them.
+Timing hooks (counterpart: pyshepseg_tpu/timinghooks.py; reference:
+pyshepseg/timinghooks.py): the port's one facility for spans and counts.
 
-On top of the reference surface, :meth:`Timers.interval` optionally waits
-for queued CUDA work (``sync=True``) so device phases are timed honestly:
-PyTorch launches return before the card finishes, and would otherwise
-attribute device time to whichever phase happens to synchronise.
+:class:`Timers` is a thread-safe, pickleable collector of named time
+intervals, used throughout the tiling drivers to time phases like
+'reading', 'segmentation', 'stitchtiles'; worker processes pickle their
+Timers back to the coordinator, which merges them. Its intervals are
+always recorded. It also holds counts (:meth:`Timers.count`) and span
+records.
+
+The module-level :data:`TRACE` is a Timers that acts as the trace: while
+a ``torch.profiler`` session runs in the process
+(``torch.autograd.profiler._is_profiler_enabled``), it receives every
+:func:`span`, every :meth:`Timers.interval` of any Timers and every
+:func:`count`, and it is emptied when the next session starts. A span
+record (:class:`Span`) holds its name, its start and end as
+``time.time_ns()`` (the profiler's own clock for host events), its
+thread, its parent (the enclosing span of the same thread) and the key
+of its unit of work (:func:`unit`). On the thread that started the
+profiler a span is also a ``record_function`` of the same name, so it
+appears in the profiler's trace; the profiler records nothing of other
+threads, whose spans are kept here alone. With no session running a span
+or a count reads one flag and records nothing.
 """
 
-import time
-import threading
+import collections
 import contextlib
+import itertools
+import threading
+import time
 
 import numpy
 import torch
+from torch.autograd import profiler as _profiler
+
+# span records the trace holds; later ones are counted in Timers.dropped
+MAX_SPANS = 1 << 20
+
+# one span: times in ns on time.time_ns()'s clock; ``parent`` is the id
+# of the enclosing span on the same thread (None at the top); ``key`` that
+# of the unit of work (None outside any unit)
+Span = collections.namedtuple(
+    "Span", "name start end thread id parent key")
 
 
 class Timers:
@@ -28,28 +53,47 @@ class Timers:
 
     def __init__(self):
         self.pairs = {}
+        self.counts = {}
+        self.spans = []
+        self.dropped = 0
         self.lock = threading.Lock()
 
     @contextlib.contextmanager
-    def interval(self, intervalName, sync=False):
+    def interval(self, intervalName):
         """
-        Context manager timing one named interval. If ``sync`` is True and
-        CUDA has been initialised in this process, waits for all queued
-        work on the current CUDA device (``torch.cuda.synchronize()``)
-        before reading the end time; use it around device compute phases.
-        A block that already copies its results to the host does not need
-        it.
+        Context manager timing one named interval. While a profiler
+        session runs, the interval is also a :func:`span` of the same
+        name in :data:`TRACE`.
         """
         startTime = time.time()
         try:
-            yield
+            with span(intervalName):
+                yield
         finally:
-            if sync and torch.cuda.is_initialized():
-                torch.cuda.synchronize()
             endTime = time.time()
             with self.lock:
                 self.pairs.setdefault(intervalName, []).append(
                     (startTime, endTime))
+
+    def count(self, name, n=1):
+        """Add ``n`` to the named count."""
+        with self.lock:
+            self.counts[name] = self.counts.get(name, 0) + n
+
+    def addSpan(self, record):
+        """Keep one :class:`Span`, or count it as dropped once MAX_SPANS
+        are held."""
+        with self.lock:
+            if len(self.spans) < MAX_SPANS:
+                self.spans.append(record)
+            else:
+                self.dropped += 1
+
+    def clear(self):
+        """Drop every interval, count and span."""
+        with self.lock:
+            self.pairs, self.counts, self.spans = {}, {}, []
+            self.dropped = 0
 
     def getDurationsForName(self, intervalName):
         """List of durations (sec) for the named interval, or None."""
@@ -59,16 +103,24 @@ class Timers:
         return None
 
     def merge(self, other):
-        """Merge another Timers object into this one. ``other`` is
-        snapshotted under ITS lock first, so merging a Timers that
-        worker threads are still updating neither raises (dict resized
-        during iteration) nor drops a concurrent append."""
+        """Merge another Timers object into this one: its intervals,
+        counts and spans. ``other`` is snapshotted under ITS lock first,
+        so merging a Timers that worker threads are still updating
+        neither raises (dict resized during iteration) nor drops a
+        concurrent append."""
         with other.lock:
             snapshot = {name: list(pairs)
                         for name, pairs in other.pairs.items()}
+            counts = dict(other.counts)
+            spans, dropped = list(other.spans), other.dropped
         with self.lock:
             for name, pairs in snapshot.items():
                 self.pairs.setdefault(name, []).extend(pairs)
+            for name, n in counts.items():
+                self.counts[name] = self.counts.get(name, 0) + n
+            room = max(0, MAX_SPANS - len(self.spans))
+            self.spans.extend(spans[:room])
+            self.dropped += dropped + max(0, len(spans) - room)
 
     def makeSummaryDict(self):
         """
@@ -103,6 +155,100 @@ class Timers:
             self.__dict__.update(state)
 
 
+# the trace: see the module's docstring
+TRACE = Timers()
+# off: what span() and unit() give while no profiler session runs
+_OFF = contextlib.nullcontext()
+_local = threading.local()
+_spanIds = itertools.count(1)
+_callIds = itertools.count(1)
+_sessionLock = threading.Lock()
+_sessionOn = False
+
+
+def tracing():
+    """Whether a ``torch.profiler`` session runs in the process (on any
+    thread). A call that finds a session running, where the call before
+    it found none, empties :data:`TRACE`: two sessions with no call
+    between them share one trace (``TRACE.clear()`` parts them)."""
+    global _sessionOn
+    on = _profiler._is_profiler_enabled
+    if on != _sessionOn:
+        with _sessionLock:
+            if on and not _sessionOn:
+                TRACE.clear()
+            _sessionOn = on
+    return on
+
+
+class _Span:
+    """An open span; its record goes to TRACE when it closes."""
+    __slots__ = ("name", "mirror", "id", "parent", "key", "start")
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        stack = _local.__dict__.setdefault("stack", [])
+        self.parent = stack[-1] if stack else None
+        self.id = next(_spanIds)
+        self.key = getattr(_local, "key", None)
+        stack.append(self.id)
+        self.start = time.time_ns()
+        self.mirror = None
+        if torch._C._autograd._profiler_enabled():
+            # this thread is the profiler's: the span joins its trace
+            self.mirror = _profiler.record_function(self.name)
+            self.mirror.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.mirror is not None:
+            self.mirror.__exit__(*exc)
+        end = time.time_ns()
+        _local.stack.pop()
+        TRACE.addSpan(Span(self.name, self.start, end, threading.get_ident(),
+                           self.id, self.parent, self.key))
+        return False
+
+
+def span(name):
+    """Context manager: one span named ``name`` in :data:`TRACE` while a
+    profiler session runs; nothing otherwise."""
+    if not tracing():
+        return _OFF
+    return _Span(name)
+
+
+@contextlib.contextmanager
+def _unit(key):
+    outer = getattr(_local, "key", None)
+    if key is None:
+        key = outer if outer is not None else next(_callIds)
+    _local.key = key
+    try:
+        yield key
+    finally:
+        _local.key = outer
+
+
+def unit(key=None):
+    """Context manager: the spans that this thread opens inside the block
+    carry ``key``, which names one unit of work (a tile's ``(col, row)``).
+    With no ``key`` an enclosing unit's key stands, or else the next call
+    number. Nothing while no profiler session runs."""
+    if not tracing():
+        return _OFF
+    return _unit(key)
+
+
+def count(name, n=1):
+    """Add ``n`` to the named count of :data:`TRACE` while a profiler
+    session runs."""
+    if tracing():
+        TRACE.count(name, n)
+
+
 # ---------------------------------------------------------------------
 # Embedded self-tests, runnable without any test framework installed
 # (reference: timinghooks.py:163-200 ships an AllTests unittest class
@@ -126,11 +272,16 @@ class AllTests(unittest.TestCase):
         self.assertGreaterEqual(durations[0], 0.0)
         self.assertIsNone(t.getDurationsForName('absent'))
 
-    def test_sync_interval(self):
+    def test_interval_joins_the_trace(self):
+        from torch.profiler import ProfilerActivity, profile
         t = Timers()
-        with t.interval('device', sync=True):
+        with profile(activities=[ProfilerActivity.CPU]):
+            with t.interval('device'):
+                pass
+        with t.interval('device'):
             pass
-        self.assertEqual(len(t.getDurationsForName('device')), 1)
+        self.assertEqual(len(t.getDurationsForName('device')), 2)
+        self.assertEqual([s.name for s in TRACE.spans], ['device'])
 
     def test_merge(self):
         a = Timers()

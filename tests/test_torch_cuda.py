@@ -57,6 +57,26 @@ def test_lut_kernel_matches_plain(shape, c):
     assert lut.lut_gather.launches == before + 1
 
 
+@pytest.mark.parametrize("route", ["direct", "staged"])
+def test_lut_kernel_counts_its_bytes_in_the_trace(route):
+    """Under a profiler session each launch adds its index bytes, output
+    bytes and table bytes to the trace's ``lut_gather.bytes``."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyshepseg_tpu_torch import timinghooks
+    need_cuda()
+    n, c = 72000, 24000
+    idx = torch.randint(0, c, (n,), dtype=torch.int32, device="cuda")
+    table = torch.arange(c, dtype=torch.int64, device="cuda")
+    assert not timinghooks.tracing()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        lut.lut_gather(idx, table, route=route)
+        lut.lut_gather(idx, table, route=route)
+    counts = timinghooks.TRACE.counts
+    assert counts["lut_gather.bytes"] == 2 * (n * (4 + 8) + c * 8)
+    assert counts["lut_gather.launches"] == 2
+    assert counts["lut_gather.%s_launches" % route] == 2
+
+
 def _lut_case(rng, n, c, idx_dtype, table_dtype, offset=0):
     """Indices and a table on the card, both sliced at ``offset`` (a view
     whose data pointer is not 16-byte aligned when offset > 0); table
