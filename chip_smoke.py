@@ -4,7 +4,8 @@ Smoke run of pyshepseg_tpu_torch on one NVIDIA GPU: builds the CUDA
 kernels from pyshepseg_tpu_torch/csrc/, holds each against its plain
 PyTorch version on the card (K1 at every block shape it takes, timed by
 block shape beside its bound; K2 on both of its routes, beside
-torch.index_select, with a sweep of their times by reuse), drives
+torch.index_select, with a sweep of their times by reuse; K3 at a
+cropland tile's graph pass, beside the index_add_ pair it replaced), drives
 doShepherdSegmentation end to end at bench config1 (1024x1024) and at the
 default tile size (4096x4096), each with an A/B of the clump stage's
 two-level merge against the global sweeps (labels equal), then drives
@@ -71,6 +72,7 @@ from pyshepseg_tpu_torch import io as rio, native, tilingstats  # noqa: E402
 from pyshepseg_tpu_torch.cmdline import runtests as runtests_cli  # noqa: E402
 from pyshepseg_tpu_torch.cmdline import tiling as tiling_cli  # noqa: E402
 from pyshepseg_tpu_torch.ops import clump, kmeans, local_ccl, lut  # noqa: E402
+from pyshepseg_tpu_torch.ops import elim_small  # noqa: E402
 from pyshepseg_tpu_torch.ops import segreduce, segstats  # noqa: E402
 from pyshepseg_tpu_torch.parallel import mesh, pipeline  # noqa: E402
 from pyshepseg_tpu_torch.parallel import shardmap_clump  # noqa: E402
@@ -90,7 +92,9 @@ HBM_BYTES_PER_S = 3.35e12
 SOURCES = {"local_ccl": ("pyshepseg_tpu_torch/csrc/local_ccl.cu",
                          "pyshepseg_tpu/ops/pallas_ccl.py:92"),
            "lut_gather": ("pyshepseg_tpu_torch/csrc/lut_gather.cu",
-                          "pyshepseg_tpu/ops/lut.py:42")}
+                          "pyshepseg_tpu/ops/lut.py:42"),
+           "merge_apply": ("pyshepseg_tpu_torch/csrc/merge_apply.cu",
+                           "none (added for the graph passes' index adds)")}
 
 
 def phase(name):
@@ -223,13 +227,15 @@ def reset_counts():
     lut.lut_gather.launches = 0
     lut.lut_gather.direct_launches = 0
     lut.lut_gather.staged_launches = 0
+    elim_small.merge_apply.launches = 0
     clump.clump_labels.fallbacks = 0
     to_host.syncs = 0
 
 
 def read_counts():
     return {"local_ccl": local_ccl.local_ccl_blocks.launches,
-            "lut_gather": lut.lut_gather.launches}
+            "lut_gather": lut.lut_gather.launches,
+            "merge_apply": elim_small.merge_apply.launches}
 
 
 def read_routes():
@@ -605,6 +611,107 @@ def phase_sums(dev):
                                  % what)
 
 
+# K3 rows of phase 4d: (what, capacity, bands, candidates, movers). A
+# 4096^2 tile of the benchmark's cropland holds 1.57-1.61 M segment ids
+# and its passes have 1598 candidates and 1581 movers on average (medians
+# 30 and 2; one cycle of the granule's 16 tiles, PERF.md).
+K3_ROWS = [
+    ("cropland tile pass", 1_580_534, 3, 1598, 1581),
+    ("cropland tile pass, 7 bands", 1_580_534, 7, 1598, 1581),
+    ("every candidate moves", 1_580_534, 3, 50000, 50000),
+    ("small table", 1024, 3, 40, 10),
+]
+
+
+def k3_inputs(dev, rng, capacity, nbands, candidates, movers, target=5,
+              max_d=100.0):
+    """A graph pass's apply-step inputs (size, sums, best_nbr, d_best):
+    half the ids empty, the others larger than ``target`` but for
+    ``candidates`` ids of size ``target``, the first ``movers`` of which
+    have a best neighbour (a larger segment) within ``max_d``; sums as of
+    uint16 bands."""
+    size = np.where(rng.random(capacity) < 0.5, 0,
+                    rng.integers(target + 1, 400, size=capacity))
+    cand = rng.choice(np.arange(1, capacity), size=candidates, replace=False)
+    size[cand] = target
+    pool = np.flatnonzero(size > target)
+    best_nbr = np.full(capacity, 0xFFFFFFFF, np.int64)
+    d_best = np.full(capacity, np.inf, np.float32)
+    best_nbr[cand[:movers]] = rng.choice(pool, size=movers)
+    d_best[cand[:movers]] = rng.uniform(0, max_d, size=movers)
+    sums = size * rng.integers(1000, 5000, size=(nbands, capacity))
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (size.astype(np.int64), sums.astype(np.int64),
+                           best_nbr, d_best))
+
+
+def k3_bytes(capacity, nbands, candidates, movers):
+    """Bytes K3 must move: every id's size read and merge-map entry
+    written; each candidate's best neighbour and distance read; each
+    mover's size and sums read, added into its target's row and
+    zeroed."""
+    return (capacity * 16 + candidates * 12 +
+            movers * 3 * (nbands + 1) * 8)
+
+
+def time_k3(what, size, sums, best_nbr, d_best, target=5, max_d=100.0):
+    """K3 against its plain version at one pass's inputs, bit for bit;
+    the kernel's ms (in place: less the copies that restore its inputs
+    before each call), its bound, the plain version's ms and the ms of
+    the pair of index_add_ calls the plain version makes (the port calls
+    them only for float sums). Returns the record for the kernels line."""
+    args = (best_nbr, d_best, target, max_d)
+    want = elim_small.merge_apply_reference(size, sums, *args)
+    s, u = size.clone(), sums.clone()
+    got = elim_small.merge_apply(s, u, *args)
+    for name, g, w in zip(("merge_map", "size", "sums", "movers"), got,
+                          want):
+        check_equal(g, w, "K3 %s %s" % (what, name))
+    capacity, nbands = sums.shape[1], sums.shape[0]
+    ids = torch.arange(capacity, device=size.device)
+    candidates = int(((size == target) & (ids >= 1)).sum())
+    movers = int(want[3])
+
+    def restore():
+        s.copy_(size)
+        u.copy_(sums)
+
+    def kernel():
+        restore()
+        elim_small.merge_apply(s, u, *args)
+    c_ms = cuda_ms(restore)
+    k_ms = cuda_ms(kernel) - c_ms
+    p_ms = cuda_ms(lambda: elim_small.merge_apply_reference(size, sums,
+                                                            *args))
+    move = want[0] != ids
+    merge_to = torch.where(move, best_nbr, 0)
+    moved_size = torch.where(move, size, 0)
+    moved_sums = torch.where(move[None], sums, 0)
+    lib_ms = cuda_ms(lambda: (
+        torch.zeros_like(size).index_add_(0, merge_to, moved_size),
+        torch.zeros_like(sums).index_add_(1, merge_to, moved_sums)))
+    b_ms = bound_ms(k3_bytes(capacity, nbands, candidates, movers))
+    print("K3 %s: capacity %d, %d bands, %d candidates, %d movers: equal; "
+          "kernel %.4f ms, bound %.4f ms (%.1f%% of bound), plain %.4f ms, "
+          "index_add_ pair %.4f ms"
+          % (what, capacity, nbands, candidates, movers, k_ms, b_ms,
+             100 * b_ms / k_ms, p_ms, lib_ms))
+    return dict(shape="%s, capacity %d, %d bands, %d candidates, %d movers"
+                % (what, capacity, nbands, candidates, movers), ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by="bytes",
+                library_ms=lib_ms,
+                max_abs_err=max(max_abs_err(g, w) for g, w in
+                                zip(got, want)))
+
+
+def phase_k3(dev, rng):
+    """K3 at every row of K3_ROWS; returns the cropland row's record."""
+    phase("4d K3 merge_apply vs plain version (tolerance: exact)")
+    records = [time_k3(what, *k3_inputs(dev, rng, *shape))
+               for what, *shape in K3_ROWS]
+    return records[0]
+
+
 def tile_clusters(img, km, dev):
     """The cluster image doShepherdSegmentation clumps (int32, null 0)."""
     return shepseg.assign_clusters(
@@ -928,10 +1035,12 @@ def phase_tiled(tmp):
                 runs[name][1:3] != runs["serial"][1:3]):
             raise AssertionError("tiled: %s differs from serial" % name)
     serial = runs["serial"][3]
-    if serial["local_ccl"] < 9 or serial["lut_gather"] < 1:
-        raise AssertionError("tiled: serial run launched K1 %d times and "
-                             "K2 %d times" % (serial["local_ccl"],
-                                              serial["lut_gather"]))
+    if (serial["local_ccl"] < 9 or serial["lut_gather"] < 1 or
+            serial["merge_apply"] < 1):
+        raise AssertionError("tiled: serial run launched K1 %d times, "
+                             "K2 %d times and K3 %d times"
+                             % (serial["local_ccl"], serial["lut_gather"],
+                                serial["merge_apply"]))
     print("tiled 8000^2: serial == threads == 3-phase bit for bit; %d "
           "segments, no empty ids, histogram sums to %d"
           % (runs["serial"][1], hist0.sum()))
@@ -1782,6 +1891,7 @@ def main():
     graph_pass = phase_k2(dev, rng)
     phase_k2_sweep(dev, rng)
     phase_sums(dev)
+    merge_apply_rec = phase_k3(dev, rng)
     config1_launches, records = phase_config1(dev)
     img6, km6, seg6 = phase_tile(dev)
     # phase 12 runs where its inputs are at hand: 12a and 12c on phase 6's
@@ -1819,6 +1929,7 @@ def main():
     print("phase 13 launches (counted by the tile jobs):", phase13)
     # each path was counted from 0 and read just after it ran; the
     # record's count is the serial tiled run's plus phase 12's and 13's
+    # (the tile jobs of phase 13 and the DCN processes report no K3)
     for counts in list(phase12.values()) + list(phase13.values()):
         add_counts(launches, counts)
     graph_pass["shape"] = "graph pass, 72000 int32 from 24000 int64"
@@ -1827,7 +1938,8 @@ def main():
                     **rec)
                for name, rec in [("local_ccl", records["local_ccl"]),
                                  ("lut_gather", records["lut_gather"]),
-                                 ("lut_gather", graph_pass)]]
+                                 ("lut_gather", graph_pass),
+                                 ("merge_apply", merge_apply_rec)]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -143,6 +143,10 @@ def lib():
                 vp, i32, vp, i32, vp, i64, i64, i32, i32, vp]
             handle.lut_gather_smem_limit.restype = i32
             handle.lut_gather_smem_limit.argtypes = [i32]
+            handle.merge_apply_launch.restype = i32
+            handle.merge_apply_launch.argtypes = [
+                vp, vp, i32, vp, vp, vp, vp, i64, i64, i64, i64,
+                ctypes.c_float, i32, vp]
             _lib = handle
     return _lib
 

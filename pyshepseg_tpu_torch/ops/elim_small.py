@@ -14,10 +14,16 @@ id remap (orig id -> current id). Hence:
    (one int64 sort of ``lo << 32 | hi`` keys, then dedupe);
 2. run every find+apply pass on (2E,) and (capacity,) vectors: remap the
    edge endpoints, per-edge mean distances, two segment minima
-   (``scatter_reduce`` "amin", exact and order-free), merge application
-   as capacity-sized index adds, and remap composition;
+   (``scatter_reduce`` "amin", exact and order-free), the merge
+   application (:func:`merge_apply`), and remap composition;
 3. rewrite the segment image with one gather at the end, fused with the
    contiguous relabel.
+
+The merge application of integer sums goes through kernel K3
+(csrc/merge_apply.cu) on the card: it moves only the movers' sizes and
+sums onto their targets, in place, exact in any order. Float sums keep
+:func:`merge_apply_reference`, whose index adds are order-fixed on the
+card (segreduce.index_sum), so their bits do not depend on run order.
 
 The id-remap gathers go through kernel K2 (ops/lut.py) on the card at
 every capacity, with their index and table types as they are: the graph
@@ -82,23 +88,100 @@ def compact_edges(a, b, first):
     return masked(a, first), masked(b, first)
 
 
-def _merge_pass_edges(ids2, remap, size, sums, target: int, max_diff_sqr):
+def merge_apply_reference(size, sums, best_nbr, d_best, target: int,
+                          max_diff_sqr):
+    """
+    Plain PyTorch version of :func:`merge_apply`: the candidates (size ==
+    ``target``, id >= MINSEGID) that have a best neighbour within
+    ``max_diff_sqr`` move their size and sums onto it. Merges commute
+    (targets are never candidates), so every mover's row is added to its
+    target's with two capacity-sized index adds, in which each non-mover
+    adds zeros to row 0; float sums add in a fixed order on the card
+    (segreduce.index_sum). Returns (merge_map, size', sums', n_moved
+    tensor) as new tensors.
+    """
+    capacity = size.shape[0]
+    ids = torch.arange(capacity, device=size.device)
+    # spectral-difference limit (reference: shepseg.py:1060-1061, strict >)
+    move = ((size == target) & (ids >= MINSEGID) & (best_nbr != _BIG_ID) &
+            (d_best <= max_diff_sqr))
+    merge_to = torch.where(move, best_nbr, SEGNULLVAL)
+    merge_map = torch.where(move, merge_to, ids)
+    moved_size = torch.where(move, size, 0)
+    moved_sums = torch.where(move[None], sums, 0)
+    size_new = size - moved_size + index_sum(capacity, merge_to, moved_size)
+    sums_new = sums - moved_sums + index_sum(capacity, merge_to, moved_sums,
+                                             dim=1)
+    return merge_map, size_new, sums_new, move.sum()
+
+
+def merge_apply(size, sums, best_nbr, d_best, target: int, max_diff_sqr):
+    """
+    The apply step of a graph pass: ``size`` (capacity,) int64, ``sums``
+    (nBands, capacity), ``best_nbr`` (capacity,) int64 (_BIG_ID for none)
+    and ``d_best`` (capacity,) float32 indexed by current id; returns
+    (merge_map, size', sums', n_moved tensor) as
+    :func:`merge_apply_reference` does. On CUDA tensors with int64 sums
+    this launches kernel K3, which updates ``size`` and ``sums`` in place
+    and returns them; on CPU tensors it runs the plain version. Raises on
+    float sums on the card (they take the plain version's order-fixed
+    adds), on tensors that are not contiguous, and on mixed devices.
+    """
+    tensors = (size, sums, best_nbr, d_best)
+    if all(t.device.type == "cpu" for t in tensors):
+        return merge_apply_reference(size, sums, best_nbr, d_best, target,
+                                     max_diff_sqr)
+    dev = size.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("merge_apply: size, sums, best_nbr, d_best on %s"
+                         % ", ".join(str(t.device) for t in tensors))
+    if (size.dtype, sums.dtype, best_nbr.dtype, d_best.dtype) != (
+            torch.int64, torch.int64, torch.int64, torch.float32):
+        raise ValueError("merge_apply: int64 size, sums and best_nbr and "
+                         "float32 d_best only, got %s" % ", ".join(
+                             str(t.dtype) for t in tensors))
+    capacity = size.shape[0]
+    if (size.dim() != 1 or sums.dim() != 2 or sums.shape[1] != capacity or
+            best_nbr.shape != size.shape or d_best.shape != size.shape):
+        raise ValueError("merge_apply: shapes %s" % ", ".join(
+            str(tuple(t.shape)) for t in tensors))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("merge_apply: every tensor must be contiguous")
+    merge_map = torch.empty_like(size)
+    moved = torch.empty((), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        code = _kernels.lib().merge_apply_launch(
+            size.data_ptr(), sums.data_ptr(), sums.shape[0],
+            best_nbr.data_ptr(), d_best.data_ptr(), merge_map.data_ptr(),
+            moved.data_ptr(), capacity, int(target), MINSEGID, _BIG_ID,
+            float(np.float32(max_diff_sqr)), dev.index,
+            _kernels.stream_ptr(size))
+    _kernels.check(code, "merge_apply")
+    _kernels.count(merge_apply)
+    return merge_map, size, sums, moved
+
+
+merge_apply.launches = 0
+merge_apply.movers = 0
+
+
+def _merge_pass_edges(ids2, remap, size, sums, target: int, max_diff_sqr,
+                      apply):
     """
     One find+apply pass for segments of exactly ``target`` pixels on the
     segment-adjacency graph (reference findMergeSegment + doMerge,
     shepseg.py:1003-1123, on frozen per-pass state). ``ids2`` is the (2E,)
     ORIGINAL endpoint vector [ea | eb]; ``remap`` maps original id ->
     current id; ``size`` (capacity,) int64 and ``sums`` (nBands, capacity)
-    are indexed by current id. Returns (remap', size', sums', n_merged
-    tensor).
+    are indexed by current id; ``apply`` is :func:`merge_apply` or
+    :func:`merge_apply_reference` (the first may update ``size`` and
+    ``sums`` in place). Returns (remap', size', sums', n_merged tensor).
     """
     capacity = size.shape[0]
     E = ids2.shape[0] // 2
     dev = size.device
     inf = float("inf")
-    ids = torch.arange(capacity, device=dev)
 
-    is_cand = (size == target) & (ids >= MINSEGID)
     # means divide in float32, as the JAX package's float32 table does
     means = sums.to(torch.float32) / torch.clamp(size, min=1).to(
         torch.float32)[None]
@@ -134,24 +217,13 @@ def _merge_pass_edges(ids2, remap, size, sums, target: int, max_diff_sqr):
     best_nbr = torch.full((capacity,), _BIG_ID, device=dev).scatter_reduce(
         0, cur2, nb_hit, "amin", include_self=False)
 
-    # spectral-difference limit (reference: shepseg.py:1060-1061, strict >)
-    move = is_cand & (best_nbr != _BIG_ID) & (d_best <= max_diff_sqr)
-    merge_to = torch.where(move, best_nbr, SEGNULLVAL)
-    merge_map = torch.where(move, merge_to, ids)
+    merge_map, size_new, sums_new, n = apply(size, sums, best_nbr, d_best,
+                                             target, max_diff_sqr)
     if lut.use_lut(capacity, dev):
         remap_new = lut.lut_gather_flat(remap, merge_map)
     else:
         remap_new = merge_map[remap]
-
-    # merges commute (targets are never candidates): move each mover's
-    # size and sums onto its target; non-movers add zeros to row 0. Float
-    # sums add in a fixed order on the card (segreduce.index_sum)
-    moved_size = torch.where(move, size, 0)
-    moved_sums = torch.where(move[None], sums, 0)
-    size_new = size - moved_size + index_sum(capacity, merge_to, moved_size)
-    sums_new = sums - moved_sums + index_sum(capacity, merge_to, moved_sums,
-                                             dim=1)
-    return remap_new, size_new, sums_new, move.sum()
+    return remap_new, size_new, sums_new, n
 
 
 def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
@@ -169,18 +241,26 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
     indexed by current id.
 
     The loop is an ``elim_small.graph_loop`` span and each pass an
-    ``elim_small.pass`` span in it (timinghooks).
+    ``elim_small.pass`` span in it (timinghooks). Where K3 applies the
+    passes, the movers a pass reads on the host are counted in
+    ``merge_apply.movers``.
 
     Returns (remap original->current id (int64), seg_size (int64),
-    numEliminated, totalPasses).
+    numEliminated, totalPasses). ``seg_size`` and ``spect_sum`` are left
+    as they were.
     """
     capacity = seg_size.shape[0]
     dev = seg_size.device
     max_diff_sqr = float(np.float32(max_spectral_diff) ** 2)
     remap = (torch.arange(capacity, device=dev) if remap_init is None
              else remap_init.long())
-    size = seg_size.long()
-    sums = spect_sum.T.contiguous()
+    # the loop's own copies: K3 updates them in place
+    size = seg_size.to(torch.int64, copy=True)
+    sums = spect_sum.T.clone(memory_format=torch.contiguous_format)
+    # K3 for integer sums on the card; the CPU and float sums (order-fixed
+    # adds on the card) take the plain version
+    apply = (merge_apply if sums.is_cuda and sums.dtype == torch.int64
+             else merge_apply_reference)
     # int32 halves the index bytes K2 streams each pass; ids < capacity < 2^31
     ids2 = torch.cat([ea, eb]).to(torch.int32)
 
@@ -194,10 +274,13 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
             while count > 0 and count != prev and passes < 10:
                 with timinghooks.span("elim_small.pass"):
                     remap, size, sums, n = _merge_pass_edges(
-                        ids2, remap, size, sums, target, max_diff_sqr)
+                        ids2, remap, size, sums, target, max_diff_sqr,
+                        apply)
                     prev = count
                     count, n = to_host(
                         torch.stack([(size == target).sum(), n]))
+                    if apply is merge_apply:
+                        _kernels.count(merge_apply, "movers", n)
                 num_elim += n
                 passes += 1
             total_passes += passes

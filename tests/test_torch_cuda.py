@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from pyshepseg_tpu_torch import shepseg, tiling
-from pyshepseg_tpu_torch.ops import clump, local_ccl, lut
-from torch_parity import (need_cuda, padded_clusters, random_clusters,
-                          read_output, voronoi_image, write_raster)
+from pyshepseg_tpu_torch.ops import clump, elim_small, local_ccl, lut
+from pyshepseg_tpu_torch.ops import segreduce
+from torch_parity import (merge_apply_case, need_cuda, padded_clusters,
+                          random_clusters, read_output, voronoi_image,
+                          write_raster)
 
 pytestmark = pytest.mark.cuda
 
@@ -146,6 +148,111 @@ def test_lut_kernel_rejects_staging_an_oversize_table():
                         device="cuda")
     with pytest.raises(ValueError):
         lut.lut_gather(idx, table, route="staged")
+
+
+# a 4096^2 tile of the benchmark's cropland holds about 1.6 M clumps
+@pytest.mark.parametrize("capacity", [1024, 1_580_534])
+@pytest.mark.parametrize("share", ["none", "sparse", "all"])
+@pytest.mark.parametrize("nbands", [1, 3, 7])
+def test_merge_apply_kernel_matches_plain(capacity, share, nbands):
+    """K3 against its plain version on the CPU, bit for bit: merge map,
+    sizes, signed int64 sums, mover count; it updates size and sums in
+    place, and leaves the rows of non-movers that are no target, row 0
+    among them, as they were."""
+    need_cuda()
+    case = merge_apply_case(np.random.default_rng(capacity + nbands),
+                            capacity, nbands, share)
+    want = elim_small.merge_apply_reference(*case, 5, 100.0)
+    size, sums, best_nbr, d_best = (t.cuda() for t in case)
+    before = elim_small.merge_apply.launches
+    got = elim_small.merge_apply(size, sums, best_nbr, d_best, 5, 100.0)
+    assert elim_small.merge_apply.launches == before + 1
+    assert got[1] is size and got[2] is sums
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    moved = want[0] != torch.arange(capacity)
+    kept = ~moved
+    kept[want[0][moved]] = False
+    assert bool(kept[0])
+    assert torch.equal(size.cpu()[kept], case[0][kept])
+    assert torch.equal(sums.cpu()[:, kept], case[1][:, kept])
+    assert (int(want[3]) == 0) == (share == "none")
+
+
+def test_merge_apply_kernel_rejects_what_it_does_not_take():
+    """Float sums, non-contiguous sums and mixed devices raise."""
+    need_cuda()
+    size, sums, best_nbr, d_best = (
+        t.cuda() for t in merge_apply_case(np.random.default_rng(1), 1024,
+                                           3, "sparse"))
+    bad = [(size, sums.float(), best_nbr, d_best),
+           (size, sums.T.contiguous().T, best_nbr, d_best),
+           (size, sums, best_nbr, d_best.cpu()),
+           (size.cpu(), sums, best_nbr, d_best)]
+    for args in bad:
+        with pytest.raises(ValueError):
+            elim_small.merge_apply(*args, 5, 100.0)
+
+
+def test_graph_elimination_on_card_matches_cpu():
+    """eliminate_small_segments_graph on the card (K3 on every pass)
+    against the CPU on a noisy tile: remap, sizes, count and passes
+    equal; one K3 launch a pass, its movers the segments eliminated; the
+    caller's sizes and sums unchanged."""
+    need_cuda()
+    img, _ = voronoi_image(np.random.default_rng(3), shape=(512, 480),
+                           ncentres=400, noise=40)
+    seg, num = clump.clump((img[0] // 97 + 1).astype(np.uint32), 0, True,
+                           device="cpu")
+    runs = {}
+    for device in ("cpu", "cuda"):
+        seg_t = torch.from_numpy(seg.astype(np.int32)).to(device)
+        size, spect = segreduce.seg_sizes_and_spectral_sums_planes(
+            seg_t, segreduce.band_planes(torch.from_numpy(
+                img.astype(np.int32)).to(device)), num + 1)
+        a, b, first, _ = elim_small.edge_sort_keys(seg_t, True)
+        ea, eb = elim_small.compact_edges(a, b, first)
+        inputs = size.clone(), spect.clone()
+        counts = (elim_small.merge_apply.launches,
+                  elim_small.merge_apply.movers)
+        out = elim_small.eliminate_small_segments_graph(ea, eb, size, spect,
+                                                        40, 60.0)
+        runs[device] = [t.cpu() if isinstance(t, torch.Tensor) else t
+                        for t in out]
+        assert torch.equal(size, inputs[0]) and torch.equal(spect, inputs[1])
+        if device == "cuda":
+            assert (elim_small.merge_apply.launches - counts[0],
+                    elim_small.merge_apply.movers - counts[1]) == (
+                        out[3], out[2])
+    assert runs["cuda"][2] > 0
+    assert torch.equal(runs["cuda"][0], runs["cpu"][0])
+    assert torch.equal(runs["cuda"][1], runs["cpu"][1])
+    assert runs["cuda"][2:] == runs["cpu"][2:]
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+def test_merge_apply_counts_in_the_trace(dtype):
+    """Under a profiler session K3's launches equal the passes run and
+    its movers the segments eliminated, for integer imagery; float
+    imagery keeps the order-fixed adds and launches K3 no time."""
+    from torch.profiler import ProfilerActivity, profile
+    from pyshepseg_tpu_torch import timinghooks
+    need_cuda()
+    img, _ = voronoi_image(np.random.default_rng(6), shape=(512, 512),
+                           ncentres=300, noise=60)
+    km = shepseg.fitSpectralClusters(img, 30, 100, None, True,
+                                     device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        res = shepseg.doShepherdSegmentation(
+            img.astype(dtype), kmeansObj=km, minSegmentSize=30,
+            device="cuda")
+    counts = timinghooks.TRACE.counts
+    assert res.elimPasses > 0 and res.smallSegmentsEliminated > 0
+    if dtype == np.float32:
+        assert "merge_apply.launches" not in counts
+    else:
+        assert counts["merge_apply.launches"] == res.elimPasses
+        assert counts["merge_apply.movers"] == res.smallSegmentsEliminated
 
 
 @pytest.mark.parametrize("four_connected", [True, False])

@@ -12,7 +12,8 @@ from pyshepseg_tpu.ops import elim_small as jax_elim_small
 from pyshepseg_tpu.ops import segreduce as jax_segreduce
 from pyshepseg_tpu.ops.clump import clump as jax_clump
 from pyshepseg_tpu_torch.ops import elim_single, elim_small, segreduce
-from torch_parity import voronoi_image
+from pyshepseg_tpu_torch.ops.constants import MINSEGID
+from torch_parity import merge_apply_case, voronoi_image
 
 
 def _clumped(seed, shape=(48, 56), null=False, four_connected=True):
@@ -152,3 +153,64 @@ def test_segment_reductions_match_jax():
     assert sums.dtype == torch.int64
     np.testing.assert_array_equal(sz.numpy(), jax_segreduce.makeSegSize(seg))
     np.testing.assert_array_equal(sums.numpy().astype(np.float32), want)
+
+
+def _apply_by_loop(size, sums, best_nbr, d_best, target, max_diff_sqr):
+    """A graph pass's apply step as a serial loop over the movers (numpy):
+    (merge_map, size', sums', n_moved)."""
+    size, sums = size.numpy().copy(), sums.numpy().copy()
+    best_nbr, d_best = best_nbr.numpy(), d_best.numpy()
+    merge_map = np.arange(len(size))
+    n = 0
+    for i in np.flatnonzero((size == target) &
+                            (np.arange(len(size)) >= MINSEGID)):
+        t = best_nbr[i]
+        if t == elim_small._BIG_ID or d_best[i] > np.float32(max_diff_sqr):
+            continue
+        merge_map[i] = t
+        size[t] += size[i]
+        sums[:, t] += sums[:, i]
+        size[i] = 0
+        sums[:, i] = 0
+        n += 1
+    return merge_map, size, sums, n
+
+
+@pytest.mark.parametrize("share", ["none", "sparse", "all"])
+@pytest.mark.parametrize("nbands", [1, 3, 4, 7])
+def test_merge_apply_plain_version(nbands, share):
+    """merge_apply on the CPU (its plain version, the passes' arithmetic
+    before K3: wheres and index adds) against a serial loop over the
+    movers: merge map, sizes, signed int64 sums and the mover count equal
+    bit for bit; its inputs stay as they were."""
+    case = merge_apply_case(np.random.default_rng(nbands), 3000, nbands,
+                            share)
+    before = [t.clone() for t in case]
+    launches = elim_small.merge_apply.launches
+    want = _apply_by_loop(*case, 5, 100.0)
+    got = elim_small.merge_apply(*case, 5, 100.0)
+    assert [g.dtype for g in got] == [torch.int64] * 4
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert (want[3] == 0) == (share == "none")
+    assert all(torch.equal(t, b) for t, b in zip(case, before))
+    assert elim_small.merge_apply.launches == launches
+
+
+@pytest.mark.parametrize("nbands", [1, 3])
+def test_graph_loop_leaves_its_inputs(nbands):
+    """eliminate_small_segments_graph works on its own copies of the sizes
+    and sums (K3 updates them in place on the card): the caller's tensors,
+    a one-band transpose view included, are unchanged."""
+    img, seg, num = _clumped(8)
+    seg_t = torch.from_numpy(seg.astype(np.int32))
+    size = segreduce.seg_sizes(seg_t, num + 1)
+    spect = segreduce.seg_spectral_sums(
+        seg_t, torch.from_numpy(img[:nbands].astype(np.int32)), num + 1)
+    a, b, first, _ = elim_small.edge_sort_keys(seg_t, True)
+    ea, eb = elim_small.compact_edges(a, b, first)
+    before = size.clone(), spect.clone()
+    _, size_out, n, passes = elim_small.eliminate_small_segments_graph(
+        ea, eb, size, spect, 8, 30.0)
+    assert n > 0 and passes > 0 and not torch.equal(size_out, size)
+    assert torch.equal(size, before[0]) and torch.equal(spect, before[1])

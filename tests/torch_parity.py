@@ -79,3 +79,43 @@ def to_np(t):
     if isinstance(t, tuple):
         return tuple(to_np(x) for x in t)
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def merge_apply_case(rng, capacity, nbands, share, target=5,
+                     max_diff_sqr=100.0):
+    """
+    Inputs of a graph pass's apply step (ops/elim_small.merge_apply) as
+    CPU tensors (size, sums, best_nbr, d_best), laid out as a pass leaves
+    them: candidates have size ``target``, and every best neighbour is a
+    segment larger than ``target``. ``share`` is the share of candidates
+    that move: "none", "sparse" (about 5 %) or "all". Row 0 and some
+    non-candidates carry a neighbour within the limit too, and some
+    candidates one just beyond it, so the predicate is tested; sums are
+    signed and use 41 bits.
+    """
+    from pyshepseg_tpu_torch.ops import elim_small
+    big = elim_small._BIG_ID
+    size = rng.integers(0, 3 * target, size=capacity)
+    size[rng.random(capacity) < 0.3] = target
+    size[0] = target
+    ids = np.arange(capacity)
+    cand = (size == target) & (ids >= 1)
+    pool = ids[(size > target) & (ids >= 1)]
+    best_nbr = np.full(capacity, big, np.int64)
+    d_best = np.full(capacity, np.inf, np.float32)
+    within = rng.uniform(0, max_diff_sqr, size=capacity).astype(np.float32)
+    within[::7] = max_diff_sqr
+    beyond = np.nextafter(np.float32(max_diff_sqr), np.float32(np.inf))
+    moves = {"none": np.zeros(capacity, bool),
+             "sparse": rng.random(capacity) < 0.05,
+             "all": np.ones(capacity, bool)}[share] & cand
+    near = moves | (~cand & (rng.random(capacity) < 0.2))
+    near[0] = True
+    far = cand & ~moves & (rng.random(capacity) < 0.5)
+    for mask, d in ((near, within), (far, beyond)):
+        best_nbr[mask] = rng.choice(pool, size=int(mask.sum()))
+        d_best[mask] = d if np.ndim(d) == 0 else d[mask]
+    sums = rng.integers(-2 ** 40, 2 ** 40, size=(nbands, capacity))
+    return (torch.from_numpy(size.astype(np.int64)),
+            torch.from_numpy(sums.astype(np.int64)),
+            torch.from_numpy(best_nbr), torch.from_numpy(d_best))
