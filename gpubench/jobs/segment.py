@@ -4,7 +4,9 @@ loop: one scene after another, each to the same output path. The window
 ends when the first scene that finishes after ``--seconds`` finishes;
 ``scene_mpix_s`` is the raster pixels of all its scenes (fill included)
 over its whole time (a cell may report it split by cells, as
-``scene_mpix_s.<qualifier>``).
+``scene_mpix_s.<qualifier>``). After the window every scene's wall, its
+main Timers totals and the process's CPU seconds go to standard error,
+one line a scene, so a run's log shows which stage spread.
 
 Checked against the reference: the last scene's output raster pixel for
 pixel, and every scene's 'Histogram' column and largest id. The control
@@ -47,6 +49,7 @@ def measure(run):
     npix = grid["width"] * grid["height"]
     t0 = time.perf_counter()
     while True:
+        cpu0 = time.process_time()
         with torch.profiler.record_function("gpubench.scene"):
             s0 = time.perf_counter()
             res = tiling.doTiledShepherdSegmentation(
@@ -63,7 +66,8 @@ def measure(run):
             wall = time.perf_counter() - s0
             hist = npseg.histogram(run.state["outpath"])
         common.count_mapped(run, run.state["outpath"])
-        run.records.append(dict(wall=wall, timers=common.totals(res.timings),
+        run.records.append(dict(wall=wall, cpu_s=time.process_time() - cpu0,
+                                timers=common.totals(res.timings),
                                 maxSegId=int(res.maxSegId), hist=hist))
         if time.perf_counter() - t0 >= run.seconds:
             break
@@ -72,7 +76,24 @@ def measure(run):
         len(run.records), elapsed,
         " ".join("%.3f" % r["wall"] for r in run.records)),
         file=sys.stderr)
+    for i, r in enumerate(run.records):
+        print(scene_line(i, r), file=sys.stderr)
     return {"scene_mpix_s": len(run.records) * npix / 1e6 / elapsed}
+
+
+# the Timers intervals a scene's line gives, in the tiled driver's order
+SCENE_TIMERS = ("reading", "segmentation", "stitchtiles", "stitchwait",
+                "stitchfinalize")
+
+
+def scene_line(i, rec):
+    """One scene of the window: its wall, its main Timers totals and the
+    process's CPU seconds (all threads) over it."""
+    parts = ["scene %d: wall %.3f" % (i, rec["wall"])]
+    parts += ["%s %.3f" % (k, rec["timers"][k]) for k in SCENE_TIMERS
+              if k in rec["timers"]]
+    parts.append("cpu_s %.3f" % rec["cpu_s"])
+    return ", ".join(parts)
 
 
 release = common.release

@@ -30,7 +30,8 @@ class FakeResult:
     maxSegId = 7
 
 
-def test_window_counts_whole_scenes_over_all_time(small_spec, monkeypatch):
+def test_window_counts_whole_scenes_over_all_time(small_spec, monkeypatch,
+                                                  capsys):
     from pyshepseg_tpu_torch import tiling
     from gpubench.reference import npseg
     scene_s = 0.05
@@ -52,6 +53,12 @@ def test_window_counts_whole_scenes_over_all_time(small_spec, monkeypatch):
     rate = e2e["scene_mpix_s"]
     # all the pixels of all the scenes over the whole elapsed time
     assert 3 * npix / 1e6 / elapsed <= rate <= 3 * npix / 1e6 / (3 * scene_s)
+    # one line a scene with its wall and its main Timers totals
+    lines = [ln for ln in capsys.readouterr().err.splitlines()
+             if ln.startswith("scene ")]
+    assert len(lines) == 3
+    assert all("segmentation 1.500" in ln and "stitchfinalize 0.100" in ln
+               and "cpu_s" in ln for ln in lines)
     reader = small_spec.metric_reader("stitch_s.scene")
     assert reader.read(run) == pytest.approx(0.4)
     assert small_spec.metric_reader("tile_worker_s.scene").read(
