@@ -5,10 +5,16 @@ kernels from pyshepseg_tpu_torch/csrc/, holds each against its plain
 PyTorch version on the card (K1 at every block shape it takes, timed by
 block shape beside its bound; K2 on both of its routes, beside
 torch.index_select, with a sweep of their times by reuse; K3 at a
-cropland tile's graph pass, beside the index_add_ pair it replaced), drives
-doShepherdSegmentation end to end at bench config1 (1024x1024) and at the
-default tile size (4096x4096), each with an A/B of the clump stage's
-two-level merge against the global sweeps (labels equal), then drives
+cropland tile's graph pass, beside the index_add_ pair it replaced; K4 at
+a float 4096^2 tile's sums, the k-means sums and a float graph pass,
+against the CPU's index_add_ bit for bit, beside the atomic index_add_),
+drives doShepherdSegmentation end to end at bench config1 (1024x1024) and
+at the default tile size (4096x4096), each with an A/B of the clump
+stage's two-level merge against the global sweeps (labels equal), drives
+float32 reflectance through the main path on the card against the CPU,
+bit for bit (a 4096x4096 tile without and with 39 % fill, a 1536x1536
+scene with fill through the tiled driver; K4 and the float apply
+launched, K3 never), then drives
 the tiled driver doTiledShepherdSegmentation over an 8000x8000 scene in 9
 tiles of 4096^2 (its k-means fitted twice, equal bit for bit; serial, two
 worker threads and the 3-phase API, equal bit for bit), serially over a
@@ -49,7 +55,8 @@ also fails where CUDA is absent or the package is missing. The last line of stan
 before it come the card's name and power limit as nvidia-smi reports them
 and the per-kernel JSON record (times, bound, plain version and library
 call), whose launch counts are those of the serial tiled run plus phase
-12's and phase 13's paths, each counted from 0.
+12's and phase 13's paths (K4's, phase 6b's float runs), each counted
+from 0.
 """
 
 import contextlib
@@ -94,7 +101,9 @@ SOURCES = {"local_ccl": ("pyshepseg_tpu_torch/csrc/local_ccl.cu",
            "lut_gather": ("pyshepseg_tpu_torch/csrc/lut_gather.cu",
                           "pyshepseg_tpu/ops/lut.py:42"),
            "merge_apply": ("pyshepseg_tpu_torch/csrc/merge_apply.cu",
-                           "none (added for the graph passes' index adds)")}
+                           "none (added for the graph passes' index adds)"),
+           "ordered_sum": ("pyshepseg_tpu_torch/csrc/ordered_sum.cu",
+                           "none (added for the float sums' serial order)")}
 
 
 def phase(name):
@@ -168,11 +177,13 @@ def make_scene(h, w, nbands, ncells, seed=7, device="cuda", band_rows=256,
     return img
 
 
-def write_scene(path, img):
+def write_scene(path, img, nodata=None):
     nbands, h, w = img.shape
     ds = rio.create(path, w, h, nbands, img.dtype)
     for b in range(nbands):
         ds.GetRasterBand(b + 1).WriteArray(img[b])
+        if nodata is not None:
+            ds.GetRasterBand(b + 1).SetNoDataValue(nodata)
     ds.FlushCache()
 
 
@@ -228,6 +239,8 @@ def reset_counts():
     lut.lut_gather.direct_launches = 0
     lut.lut_gather.staged_launches = 0
     elim_small.merge_apply.launches = 0
+    segreduce.ordered_sum.launches = 0
+    elim_small.merge_apply_movers.launches = 0
     clump.clump_labels.fallbacks = 0
     to_host.syncs = 0
 
@@ -235,7 +248,24 @@ def reset_counts():
 def read_counts():
     return {"local_ccl": local_ccl.local_ccl_blocks.launches,
             "lut_gather": lut.lut_gather.launches,
-            "merge_apply": elim_small.merge_apply.launches}
+            "merge_apply": elim_small.merge_apply.launches,
+            "ordered_sum": segreduce.ordered_sum.launches,
+            "merge_apply_movers": elim_small.merge_apply_movers.launches}
+
+
+# the kernels of integer imagery's path, and the float path's two launches
+# that integer imagery never makes
+INT_KERNELS = ("local_ccl", "lut_gather", "merge_apply")
+FLOAT_ONLY = ("ordered_sum", "merge_apply_movers")
+
+
+def need_integer_path(what, counts):
+    """K1, K2 and K3 launched, and neither K4 nor the float apply."""
+    need_launches(what, counts, INT_KERNELS)
+    for name in FLOAT_ONLY:
+        if counts[name]:
+            raise AssertionError("%s: integer imagery launched %s %d times"
+                                 % (what, name, counts[name]))
 
 
 def read_routes():
@@ -560,55 +590,127 @@ def phase_k2_sweep(dev, rng):
 
 
 def atomic_sum(size, index, source, dim=0):
-    """A float sum as the port summed before segreduce.index_sum:
-    index_add_, in the order of the card's atomics (the A side of the
-    A/Bs below; the port no longer calls it)."""
+    """A float sum as the port summed before K4: index_add_, in the order
+    of the card's atomics (the library beside K4 below, and the A side of
+    phase 7's refits; the port no longer calls it for floats)."""
     shape = list(source.shape)
     shape[dim] = size
     return torch.zeros(shape, dtype=source.dtype,
                        device=source.device).index_add_(dim, index, source)
 
 
-def distinct(fn, calls=5):
-    """How many different results ``fn`` gives over ``calls`` calls."""
-    return len({fn().cpu().numpy().tobytes() for _ in range(calls)})
+def host_ms(fn, reps=3):
+    """Mean milliseconds of ``fn`` on the host clock (the CPU versions)."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
 
 
-def phase_sums(dev):
-    """segreduce.index_sum against index_add_ at the float sums' shapes
-    on the path: ms of each, distinct results over 5 calls, and the
-    largest difference from a float64 sum."""
-    phase("4c order-fixed float sums (segreduce.index_sum) vs index_add_")
+def k4_bytes(n, bins, ncols):
+    """Bytes K4 must move (the count ``ordered_sum.bytes``): each key
+    (8 B) and each element's columns read once, each bin's written once,
+    at most one bin a key."""
+    return n * 8 + (n + min(n, bins)) * ncols * 4
+
+
+# K4 rows of phase 4c: the float sums of the path, (what, bins, elements,
+# columns): a float 4096^2 tile's band sums into a cropland tile's ids,
+# the k-means Lloyd sums
+K4_ROWS = [("float tile spectral sums, 4096^2 x 3", 1_580_534, 4096 * 4096,
+            3),
+           ("k-means sums, 10^6 points x 4", 60, 1_000_000, 4)]
+
+
+def time_k4_sum(dev, gen, what, bins, n, ncols):
+    """segreduce.ordered_sum at one of K4_ROWS against the CPU's
+    index_add_ bit for bit; ms of K4 alone, of the whole wrapper (its
+    library sort of the keys included), of the plain version on the host
+    and of the atomic index_add_ on the card."""
+    index = torch.randint(0, bins, (n,), generator=gen, device=dev)
+    source = 0.3 + 0.05 * torch.randn((n, ncols), generator=gen, device=dev)
+    cpu_index, cpu_source = index.cpu(), source.cpu()
+    want = segreduce.ordered_sum_reference(bins, cpu_index, cpu_source)
+    got = segreduce.ordered_sum(bins, index, source)
+    check_equal(got.cpu().view(torch.int32), want.view(torch.int32),
+                "K4 %s" % what)
+    keys = torch.sort((index << 32) | torch.arange(n, device=dev)).values
+    out = torch.zeros_like(got)
+    k_ms = cuda_ms(lambda: segreduce.ordered_sum_keys(keys, source, out))
+    w_ms = cuda_ms(lambda: segreduce.ordered_sum(bins, index, source))
+    p_ms = host_ms(lambda: segreduce.ordered_sum_reference(
+        bins, cpu_index, cpu_source))
+    lib_ms = cuda_ms(lambda: atomic_sum(bins, index, source))
+    b_ms = bound_ms(k4_bytes(n, bins, ncols))
+    print("K4 %s into %d bins: equal to the CPU's index_add_; kernel %.4f ms,"
+          " bound %.4f ms (%.1f%% of bound), with its sort %.4f ms, plain "
+          "(CPU) %.4f ms, atomic index_add_ %.4f ms"
+          % (what, bins, k_ms, b_ms, 100 * b_ms / k_ms, w_ms, p_ms, lib_ms))
+    return dict(shape="%s into %d bins" % (what, bins), ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by="bytes",
+                library_ms=lib_ms, max_abs_err=0.0)
+
+
+def time_k4_pass(dev, rng, capacity=1_580_534, nbands=3, candidates=1598,
+                 movers=1581):
+    """A float graph pass's apply (elim_small.merge_apply_movers: the
+    selection kernel, the sort of one key a candidate, K4) at a cropland
+    tile's mean pass against merge_apply_reference on the CPU, bit for
+    bit; ms of K4 alone and of the whole apply (in place: less the copies
+    that restore their inputs), of the plain version on the host and of
+    the atomic index_add_ pair on the card."""
+    size, sums, best_nbr, d_best = k3_inputs(dev, rng, capacity, nbands,
+                                             candidates, movers)
+    sums = (sums.to(torch.float32) * 1e-4).contiguous()
+    args = (best_nbr, d_best, 5, 100.0)
+    cpu = [t.cpu() for t in (size, sums, best_nbr, d_best)]
+    want = elim_small.merge_apply_reference(*cpu, 5, 100.0)
+    cand = int((size == 5).sum())
+    s, u = size.clone(), sums.clone()
+    got = elim_small.merge_apply_movers(s, u, *args, cand)
+    for name, g, w in zip(("merge_map", "size", "sums", "movers"), got,
+                          want):
+        check_equal(g.cpu(), w, "float apply %s" % name)
+    move = want[0] != torch.arange(capacity)
+    ids = torch.nonzero(move).squeeze(1).to(dev)
+    keys = torch.full((cand,), elim_small._NO_KEY, dtype=torch.int64,
+                      device=dev)
+    keys[:ids.numel()] = torch.sort((best_nbr[ids] << 32) | ids).values
+
+    def restore():
+        s.copy_(size)
+        u.copy_(sums)
+    c_ms = cuda_ms(restore)
+    k_ms = cuda_ms(lambda: (restore(), segreduce.ordered_sum_keys(
+        keys, u, u, dim=1, zero_source=True))) - c_ms
+    a_ms = cuda_ms(lambda: (restore(), elim_small.merge_apply_movers(
+        s, u, *args, cand))) - c_ms
+    p_ms = host_ms(lambda: elim_small.merge_apply_reference(*cpu, 5, 100.0))
+    merge_to = torch.where(move.to(dev), best_nbr, 0)
+    moved_size = torch.where(move.to(dev), size, 0)
+    moved_sums = torch.where(move.to(dev)[None], sums, 0)
+    lib_ms = cuda_ms(lambda: (
+        torch.zeros_like(size).index_add_(0, merge_to, moved_size),
+        torch.zeros_like(sums).index_add_(1, merge_to, moved_sums)))
+    b_ms = bound_ms(cand * 8 + 2 * movers * nbands * 4)
+    print("K4 float graph pass, capacity %d, %d bands, %d candidates, %d "
+          "movers: equal to merge_apply_reference; K4 %.4f ms, bound %.4f ms"
+          " (%.1f%% of bound), whole apply %.4f ms, plain (CPU) %.4f ms, "
+          "atomic index_add_ pair %.4f ms"
+          % (capacity, nbands, cand, movers, k_ms, b_ms, 100 * b_ms / k_ms,
+             a_ms, p_ms, lib_ms))
+
+
+def phase_k4(dev, rng):
+    """K4 at each of K4_ROWS and at a float graph pass; returns the tile
+    row's record."""
+    phase("4c K4 ordered_sum vs the CPU's index_add_ (tolerance: exact)")
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
-    cap = 32768
-    merge_to = torch.where(
-        torch.rand(cap, generator=gen, device=dev) < 0.05,
-        torch.randint(1, cap, (cap,), generator=gen, device=dev), 0)
-    rows = [("k-means sums, 1000000 x 4 float32 into 60", 60,
-             torch.randint(0, 60, (1_000_000,), generator=gen, device=dev),
-             (1_000_000, 4), 2000.0, 0),
-            ("float tile spectral sums, 4096^2 x 4 into 24308", 24308,
-             torch.randint(0, 24308, (4096 * 4096,), generator=gen,
-                           device=dev), (4096 * 4096, 4), 2000.0, 0),
-            ("graph pass sums, 4 x 32768 into 32768", cap, merge_to,
-             (4, cap), 0.0, 1)]
-    for what, size, index, shape, mean, dim in rows:
-        source = mean + 600 * torch.randn(shape, generator=gen, device=dev)
-        fixed = functools.partial(segreduce.index_sum, size, index, source,
-                                  dim)
-        atomic = functools.partial(atomic_sum, size, index, source, dim)
-        want = atomic_sum(size, index, source.double(), dim)
-        err = float((fixed().double() - want).abs().max())
-        n_fixed = distinct(fixed)
-        print("%s: index_add_ %.4f ms (%d distinct results of 5), index_sum "
-              "%.4f ms (%d distinct of 5), largest difference from a "
-              "float64 sum %.3g"
-              % (what, cuda_ms(atomic, reps=10), distinct(atomic),
-                 cuda_ms(fixed, reps=10), n_fixed, err))
-        if n_fixed != 1:
-            raise AssertionError("index_sum: %s differs between calls"
-                                 % what)
+    records = [time_k4_sum(dev, gen, *row) for row in K4_ROWS]
+    time_k4_pass(dev, rng)
+    return records[0]
 
 
 # K3 rows of phase 4d: (what, capacity, bands, candidates, movers). A
@@ -738,9 +840,7 @@ def phase_config1(dev):
     if not np.array_equal(res.segimg, res_cpu.segimg):
         raise AssertionError("config1: cuda and cpu segimg differ at %d "
                              "pixels" % (res.segimg != res_cpu.segimg).sum())
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError("config1: %s never launched" % name)
+    need_integer_path("config1", launches)
     nseg = int(res.segimg.max())
     if clump.clump_labels.fallbacks:
         raise AssertionError("config1: two-level verify failed")
@@ -807,9 +907,7 @@ def phase_tile(dev):
     if nxt - 1 != nseg:
         raise AssertionError("4096^2: re-clumping gives %d segments, not %d"
                              % (nxt - 1, nseg))
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError("4096^2: %s never launched" % name)
+    need_integer_path("4096^2", launches)
     if clump.clump_labels.fallbacks:
         raise AssertionError("4096^2: two-level verify failed")
     print("4096^2: %d clumps (capacity %d), %d segments, %d sweeps, "
@@ -865,6 +963,139 @@ def phase_tile(dev):
     return img, km, seg
 
 
+# float32 reflectance (phase 6b): Sentinel-2 L2A's rule for processing
+# baseline 04.00 on, reflectance = (DN + BOA_ADD_OFFSET) / 10000 with an
+# offset of -1000, and a nodata value no reflectance takes
+FLOAT_NODATA = -9999.0
+
+
+def reflectance(dn, fill=0.0):
+    """uint16 DNs as float32 reflectance, the first ``fill`` share of the
+    columns set to FLOAT_NODATA in every band, as at a scene's edge."""
+    img = (dn.astype(np.float32) - np.float32(1000)) / np.float32(10000)
+    img[:, :, :int(img.shape[2] * fill)] = FLOAT_NODATA
+    return img
+
+
+def need_float_path(what, counts, passes=None):
+    """K1, K2, K4 and the float apply launched, K3 not; given the tile's
+    ``passes``, K4 once for its sums and once a pass, the float apply once
+    a pass."""
+    need_launches(what, counts, ("local_ccl", "lut_gather") + FLOAT_ONLY)
+    if counts["merge_apply"]:
+        raise AssertionError("%s: float imagery launched K3 %d times"
+                             % (what, counts["merge_apply"]))
+    if passes is not None and (counts["ordered_sum"],
+                               counts["merge_apply_movers"]) != (passes + 1,
+                                                                 passes):
+        raise AssertionError("%s: %d graph passes, K4 launched %d times and"
+                             " the float apply %d times"
+                             % (what, passes, counts["ordered_sum"],
+                                counts["merge_apply_movers"]))
+
+
+def float_tile_run(img, km, device):
+    """doShepherdSegmentation of a float tile at config1's settings, its
+    fill as nodata, counted from 0: (result, wall s, launches)."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    res = shepseg.doShepherdSegmentation(img, kmeansObj=km, device=device,
+                                         imgNullVal=FLOAT_NODATA, **CONFIG1)
+    torch.cuda.synchronize()
+    return res, time.time() - t0, read_counts()
+
+
+def phase_float(dev, tmp):
+    """6b: float32 reflectance through the main path on the card against
+    the CPU, bit for bit: a 4096^2 tile without fill and with 39 % (a
+    Landsat scene's share), through doShepherdSegmentation (labels,
+    singles, segments eliminated, passes), and a 1536^2 scene with 39 %
+    fill in 2 x 2 tiles of 1024 through doTiledShepherdSegmentation
+    (raster, histogram, maxSegId). K4 and the float apply must launch,
+    K3 never. Times the fill tile's band sums with the null segment left
+    out (the path) and summed (one serial run of the fill). Returns the
+    launches of one card run of each tile and of the tiled run."""
+    phase("6b float32 reflectance on the main path, card vs CPU (tolerance:"
+          " exact)")
+    dn = make_image(4096, 4096, 4, ncells=4096, device=dev)
+    total = {}
+    for fill in (0.0, 0.39):
+        what = "float 4096^2, %.0f%% fill" % (100 * fill)
+        img = reflectance(dn, fill)
+        km = shepseg.fitSpectralClusters(img, 60, 1, FLOAT_NODATA, True,
+                                          device=dev)
+        walls = []
+        for _ in range(2):
+            res, wall, launches = float_tile_run(img, km, "cuda")
+            walls.append(wall)
+        cpu, cpu_wall, _ = float_tile_run(img, km, "cpu")
+        if not np.array_equal(res.segimg, cpu.segimg):
+            raise AssertionError("%s: card and CPU differ at %d pixels"
+                                 % (what, (res.segimg != cpu.segimg).sum()))
+        for name in ("singlePixelsEliminated", "smallSegmentsEliminated",
+                     "elimPasses"):
+            if getattr(res, name) != getattr(cpu, name):
+                raise AssertionError("%s: %s %d on the card, %d on the CPU"
+                                     % (what, name, getattr(res, name),
+                                        getattr(cpu, name)))
+        need_float_path(what, launches, res.elimPasses)
+        add_counts(total, launches)
+        print("%s: card == CPU bit for bit (labels, %d singles, %d segments"
+              " eliminated, %d passes); %d segments; card %.3f s first, "
+              "%.3f s second, CPU %.3f s; launches %s"
+              % (what, res.singlePixelsEliminated,
+                 res.smallSegmentsEliminated, res.elimPasses,
+                 int(res.segimg.max()), walls[0], walls[1], cpu_wall,
+                 launches))
+    seg_t = torch.from_numpy(res.segimg.astype(np.int64)).to(dev)
+    planes = tuple(torch.from_numpy(img[b]).to(dev)
+                   for b in range(img.shape[0]))
+    cap = int(res.segimg.max()) + 1
+    skip_ms = cuda_ms(lambda: segreduce.seg_spectral_sums_tile(
+        seg_t, planes, cap), reps=5)
+    full_ms = cuda_ms(lambda: segreduce.seg_spectral_sums_planes(
+        seg_t, planes, cap), reps=5)
+    print("%s band sums (sort and K4): null segment (%d pixels) left out "
+          "%.3f ms, summed as one serial run %.3f ms"
+          % (what, int((res.segimg == 0).sum()), skip_ms, full_ms))
+    del dn, img, seg_t, planes
+
+    h = w = 1536
+    img = reflectance(make_scene(h, w, 4, ncells=900, seed=11), 0.39)
+    inpath = os.path.join(tmp, "float.npseg")
+    write_scene(inpath, img, FLOAT_NODATA)
+    km, _, _ = tiling.fitSpectralClustersWholeFile(
+        rio.open(inpath), [1, 2, 3, 4], 60, None, FLOAT_NODATA, True,
+        device="cuda")
+    got = {}
+    for device in ("cuda", "cpu"):
+        out = os.path.join(tmp, "float_%s.npseg" % device)
+        reset_counts()
+        t0 = time.time()
+        res = tiling.doTiledShepherdSegmentation(
+            inpath, out, tileSize=1024, overlapSize=256, kmeansObj=km,
+            imgNullVal=FLOAT_NODATA, device=device, **TILED)
+        got[device] = (read_seg(out), res.maxSegId, res.hasEmptySegments,
+                       read_counts(), time.time() - t0)
+    (seg_g, hist_g), max_g, empty_g, launches, wall_g = got["cuda"]
+    (seg_c, hist_c), max_c, empty_c, _, wall_c = got["cpu"]
+    # every pixel but the null segment's is labelled (a single pixel
+    # beside the fill may join the null segment, as in the JAX package)
+    check_mosaic(seg_g, hist_g, max_g, empty_g, int(np.count_nonzero(seg_g)),
+                 "float tiled 1536^2")
+    if (not np.array_equal(seg_g, seg_c) or not np.array_equal(hist_g, hist_c)
+            or (max_g, empty_g) != (max_c, empty_c)):
+        raise AssertionError("float tiled 1536^2: card and CPU differ at %d"
+                             " pixels" % (seg_g != seg_c).sum())
+    need_float_path("float tiled 1536^2", launches)
+    add_counts(total, launches)
+    print("float tiled 1536^2, 39%% fill: card == CPU bit for bit (raster, "
+          "histogram, maxSegId %d); card %.3f s, CPU %.3f s; launches %s"
+          % (max_g, wall_g, wall_c, launches))
+    return total
+
+
 def check_mosaic(seg, hist, maxSegId, hasEmpty, npix, what):
     """Every pixel labelled, ids exactly 1..maxSegId, RAT == counts."""
     if hasEmpty:
@@ -913,7 +1144,7 @@ def scene_file(tmp, h, w, ncells, refit=False):
           % (ncells, pcnt, km.n_iter_, time.time() - t0))
     if refit:
         # in turns with the atomic sums the port had before (atomic,
-        # order-fixed, atomic): the order-fixed fits must be equal
+        # serial (K4), atomic): the serial fits must be equal
         fits = {}
         for sums in ("atomic", "fixed", "atomic"):
             kmeans.index_sum = (atomic_sum if sums == "atomic" else
@@ -939,7 +1170,7 @@ def scene_file(tmp, h, w, ncells, refit=False):
                 % ((km.cluster_centers_ != again.cluster_centers_).sum(),
                    km.inertia_, again.inertia_, km.n_iter_, again.n_iter_))
         a, b = fits["atomic"]
-        print("k-means: the order-fixed fits' centres, inertia and %d "
+        print("k-means: the serial (K4) fits' centres, inertia and %d "
               "iterations equal bit for bit; the atomic fits' centres "
               "differ in %d values (%d / %d iterations)"
               % (again.n_iter_, (a.cluster_centers_ !=
@@ -1035,12 +1266,10 @@ def phase_tiled(tmp):
                 runs[name][1:3] != runs["serial"][1:3]):
             raise AssertionError("tiled: %s differs from serial" % name)
     serial = runs["serial"][3]
-    if (serial["local_ccl"] < 9 or serial["lut_gather"] < 1 or
-            serial["merge_apply"] < 1):
-        raise AssertionError("tiled: serial run launched K1 %d times, "
-                             "K2 %d times and K3 %d times"
-                             % (serial["local_ccl"], serial["lut_gather"],
-                                serial["merge_apply"]))
+    if serial["local_ccl"] < 9:
+        raise AssertionError("tiled: serial run launched K1 %d times"
+                             % serial["local_ccl"])
+    need_integer_path("tiled serial", serial)
     print("tiled 8000^2: serial == threads == 3-phase bit for bit; %d "
           "segments, no empty ids, histogram sums to %d"
           % (runs["serial"][1], hist0.sum()))
@@ -1467,9 +1696,8 @@ def phase_runtests(dev):
              clump.clump_labels.fallbacks))
     if code != 0:
         raise AssertionError("runtests: exit code %r" % (code,))
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError("runtests: %s never launched" % name)
+    # (its k-means fit sums in float on the card: K4 may launch)
+    need_launches("runtests", launches, INT_KERNELS)
 
     img = make_image(1024, 1024, 4, device=dev)
     km = shepseg.fitSpectralClusters(img, 60, 1, None, True, device=dev)
@@ -1890,10 +2118,12 @@ def main():
     phase_k1(dev, rng)
     graph_pass = phase_k2(dev, rng)
     phase_k2_sweep(dev, rng)
-    phase_sums(dev)
     merge_apply_rec = phase_k3(dev, rng)
+    ordered_sum_rec = phase_k4(dev, rng)
     config1_launches, records = phase_config1(dev)
     img6, km6, seg6 = phase_tile(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        float_launches = phase_float(dev, tmp)
     # phase 12 runs where its inputs are at hand: 12a and 12c on phase 6's
     # tile, 12b on phase 7's scene, 12d on phase 8's
     seg12a, tile_launches = phase_segment_tile(dev, img6, km6, seg6)
@@ -1932,6 +2162,10 @@ def main():
     # (the tile jobs of phase 13 and the DCN processes report no K3)
     for counts in list(phase12.values()) + list(phase13.values()):
         add_counts(launches, counts)
+    # integer imagery launches no K4: its count is phase 6b's, the float
+    # path's (one card run of each tile and the tiled run)
+    launches["ordered_sum"] = float_launches["ordered_sum"]
+    print("float path launches (phase 6b):", float_launches)
     graph_pass["shape"] = "graph pass, 72000 int32 from 24000 int64"
     kernels = [dict(name=name, route="cuda", source=SOURCES[name][0],
                     replaces=SOURCES[name][1], launches=launches[name],
@@ -1939,7 +2173,8 @@ def main():
                for name, rec in [("local_ccl", records["local_ccl"]),
                                  ("lut_gather", records["lut_gather"]),
                                  ("lut_gather", graph_pass),
-                                 ("merge_apply", merge_apply_rec)]]
+                                 ("merge_apply", merge_apply_rec),
+                                 ("ordered_sum", ordered_sum_rec)]]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

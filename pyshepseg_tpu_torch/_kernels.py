@@ -147,6 +147,13 @@ def lib():
             handle.merge_apply_launch.argtypes = [
                 vp, vp, i32, vp, vp, vp, vp, i64, i64, i64, i64,
                 ctypes.c_float, i32, vp]
+            handle.ordered_sum_launch.restype = i32
+            handle.ordered_sum_launch.argtypes = [
+                vp, i64, vp, i64, i64, i32, vp, i64, i64, i64, i32, vp]
+            handle.merge_movers_launch.restype = i32
+            handle.merge_movers_launch.argtypes = [
+                vp, vp, vp, vp, vp, i64, vp, i64, i64, i64, i64,
+                ctypes.c_float, i32, vp]
             _lib = handle
     return _lib
 

@@ -21,9 +21,13 @@ id remap (orig id -> current id). Hence:
 
 The merge application of integer sums goes through kernel K3
 (csrc/merge_apply.cu) on the card: it moves only the movers' sizes and
-sums onto their targets, in place, exact in any order. Float sums keep
-:func:`merge_apply_reference`, whose index adds are order-fixed on the
-card (segreduce.index_sum), so their bits do not depend on run order.
+sums onto their targets, in place, exact in any order. Float32 sums on
+the card go through :func:`merge_apply_movers`: the selection kernel of
+csrc/ordered_sum.cu writes the merge map, moves the sizes and lists the
+movers as (target, id) keys, a library sort orders those keys (one a
+candidate, never the capacity), and kernel K4 adds each target's movers
+in ascending id from +0.0 onto the target's row and zeroes the movers'
+rows: the bits of :func:`merge_apply_reference` on the CPU.
 
 The id-remap gathers go through kernel K2 (ops/lut.py) on the card at
 every capacity, with their index and table types as they are: the graph
@@ -36,6 +40,8 @@ equal-distance neighbours go to the smallest neighbour id (the JAX
 package's documented deviation from the reference).
 """
 
+import functools
+
 import numpy as np
 import torch
 
@@ -44,12 +50,15 @@ from .. import timinghooks
 from . import lut
 from .constants import SegIdType, SEGNULLVAL, MINSEGID
 from .shifts import shift, offsets_for
+from . import segreduce
 from .segreduce import (seg_sizes, seg_spectral_sums, relabel,
                         relabel_subtract, image_tensor, index_sum)
 from .sync import to_host, masked
 
 # "no neighbour" in the best-neighbour reduction (above any segment id)
 _BIG_ID = 0xFFFFFFFF
+# an unused slot of merge_apply_movers' keys: its bin lies past any id
+_NO_KEY = 2 ** 63 - 1
 
 
 def round_capacity(n: int) -> int:
@@ -96,9 +105,9 @@ def merge_apply_reference(size, sums, best_nbr, d_best, target: int,
     ``max_diff_sqr`` move their size and sums onto it. Merges commute
     (targets are never candidates), so every mover's row is added to its
     target's with two capacity-sized index adds, in which each non-mover
-    adds zeros to row 0; float sums add in a fixed order on the card
-    (segreduce.index_sum). Returns (merge_map, size', sums', n_moved
-    tensor) as new tensors.
+    adds zeros to row 0; on the CPU a float bin is summed serially in id
+    order from +0.0 (segreduce.index_sum). Returns (merge_map, size',
+    sums', n_moved tensor) as new tensors.
     """
     capacity = size.shape[0]
     ids = torch.arange(capacity, device=size.device)
@@ -124,8 +133,8 @@ def merge_apply(size, sums, best_nbr, d_best, target: int, max_diff_sqr):
     :func:`merge_apply_reference` does. On CUDA tensors with int64 sums
     this launches kernel K3, which updates ``size`` and ``sums`` in place
     and returns them; on CPU tensors it runs the plain version. Raises on
-    float sums on the card (they take the plain version's order-fixed
-    adds), on tensors that are not contiguous, and on mixed devices.
+    float sums on the card (they take :func:`merge_apply_movers`), on
+    tensors that are not contiguous, and on mixed devices.
     """
     tensors = (size, sums, best_nbr, d_best)
     if all(t.device.type == "cpu" for t in tensors):
@@ -165,6 +174,65 @@ merge_apply.launches = 0
 merge_apply.movers = 0
 
 
+def merge_apply_movers(size, sums, best_nbr, d_best, target: int,
+                       max_diff_sqr, candidates: int):
+    """
+    The apply step of a graph pass with float32 ``sums`` ((nBands,
+    capacity)); otherwise as :func:`merge_apply`. ``candidates`` is the
+    number of ids of size ``target`` (the host holds it before the pass),
+    an upper bound on the movers. On CUDA tensors: the selection kernel
+    (csrc/ordered_sum.cu) writes the merge map, moves the sizes in place
+    and writes one key ``target << 32 | id`` a mover; the ``candidates``
+    keys are sorted; K4 (segreduce.ordered_sum_keys) adds each target's
+    movers in ascending id from +0.0 onto its row and zeroes the movers'
+    rows, in place: the bits of :func:`merge_apply_reference` on the CPU,
+    which is its plain version (CPU tensors run it). No host sync. Raises
+    on other dtypes, tensors that are not contiguous, and mixed devices.
+    """
+    tensors = (size, sums, best_nbr, d_best)
+    if all(t.device.type == "cpu" for t in tensors):
+        return merge_apply_reference(size, sums, best_nbr, d_best, target,
+                                     max_diff_sqr)
+    dev = size.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError("merge_apply_movers: size, sums, best_nbr, d_best "
+                         "on %s" % ", ".join(str(t.device) for t in tensors))
+    if (size.dtype, sums.dtype, best_nbr.dtype, d_best.dtype) != (
+            torch.int64, torch.float32, torch.int64, torch.float32):
+        raise ValueError("merge_apply_movers: int64 size and best_nbr, "
+                         "float32 sums and d_best only, got %s" % ", ".join(
+                             str(t.dtype) for t in tensors))
+    capacity = size.shape[0]
+    if (size.dim() != 1 or sums.dim() != 2 or sums.shape[1] != capacity or
+            best_nbr.shape != size.shape or d_best.shape != size.shape):
+        raise ValueError("merge_apply_movers: shapes %s" % ", ".join(
+            str(tuple(t.shape)) for t in tensors))
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("merge_apply_movers: every tensor must be "
+                         "contiguous")
+    merge_map = torch.empty_like(size)
+    moved = torch.empty((), dtype=torch.int64, device=dev)
+    keys = torch.full((int(candidates),), _NO_KEY, dtype=torch.int64,
+                      device=dev)
+    with torch.cuda.device(dev):
+        code = _kernels.lib().merge_movers_launch(
+            size.data_ptr(), best_nbr.data_ptr(), d_best.data_ptr(),
+            merge_map.data_ptr(), keys.data_ptr(), keys.shape[0],
+            moved.data_ptr(), capacity, int(target), MINSEGID, _BIG_ID,
+            float(np.float32(max_diff_sqr)), dev.index,
+            _kernels.stream_ptr(size))
+    _kernels.check(code, "merge_movers")
+    _kernels.count(merge_apply_movers)
+    if keys.shape[0]:
+        segreduce.ordered_sum_keys(torch.sort(keys).values, sums, sums,
+                                   dim=1, zero_source=True, elements=0)
+    return merge_map, size, sums, moved
+
+
+merge_apply_movers.launches = 0
+merge_apply_movers.movers = 0
+
+
 def _merge_pass_edges(ids2, remap, size, sums, target: int, max_diff_sqr,
                       apply):
     """
@@ -173,9 +241,10 @@ def _merge_pass_edges(ids2, remap, size, sums, target: int, max_diff_sqr,
     shepseg.py:1003-1123, on frozen per-pass state). ``ids2`` is the (2E,)
     ORIGINAL endpoint vector [ea | eb]; ``remap`` maps original id ->
     current id; ``size`` (capacity,) int64 and ``sums`` (nBands, capacity)
-    are indexed by current id; ``apply`` is :func:`merge_apply` or
-    :func:`merge_apply_reference` (the first may update ``size`` and
-    ``sums`` in place). Returns (remap', size', sums', n_merged tensor).
+    are indexed by current id; ``apply`` is :func:`merge_apply`,
+    :func:`merge_apply_reference` or :func:`merge_apply_movers` (the
+    kernels update ``size`` and ``sums`` in place). Returns (remap',
+    size', sums', n_merged tensor).
     """
     capacity = size.shape[0]
     E = ids2.shape[0] // 2
@@ -243,7 +312,9 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
     The loop is an ``elim_small.graph_loop`` span and each pass an
     ``elim_small.pass`` span in it (timinghooks). Where K3 applies the
     passes, the movers a pass reads on the host are counted in
-    ``merge_apply.movers``.
+    ``merge_apply.movers``; where float32 sums on the card take
+    :func:`merge_apply_movers`, in ``merge_apply_movers.movers``, and
+    their rows read by K4 in ``ordered_sum.bytes``.
 
     Returns (remap original->current id (int64), seg_size (int64),
     numEliminated, totalPasses). ``seg_size`` and ``spect_sum`` are left
@@ -254,11 +325,12 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
     max_diff_sqr = float(np.float32(max_spectral_diff) ** 2)
     remap = (torch.arange(capacity, device=dev) if remap_init is None
              else remap_init.long())
-    # the loop's own copies: K3 updates them in place
+    # the loop's own copies: K3 and K4 update them in place
     size = seg_size.to(torch.int64, copy=True)
     sums = spect_sum.T.clone(memory_format=torch.contiguous_format)
-    # K3 for integer sums on the card; the CPU and float sums (order-fixed
-    # adds on the card) take the plain version
+    # K3 for integer sums on the card, the movers-only apply (K4) for float
+    # sums there; the CPU takes the plain version
+    movers_only = sums.is_cuda and sums.is_floating_point()
     apply = (merge_apply if sums.is_cuda and sums.dtype == torch.int64
              else merge_apply_reference)
     # int32 halves the index bytes K2 streams each pass; ids < capacity < 2^31
@@ -272,6 +344,9 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
             prev = -1
             passes = 0
             while count > 0 and count != prev and passes < 10:
+                if movers_only:
+                    apply = functools.partial(merge_apply_movers,
+                                              candidates=count)
                 with timinghooks.span("elim_small.pass"):
                     remap, size, sums, n = _merge_pass_edges(
                         ids2, remap, size, sums, target, max_diff_sqr,
@@ -281,6 +356,10 @@ def eliminate_small_segments_graph(ea, eb, seg_size, spect_sum,
                         torch.stack([(size == target).sum(), n]))
                     if apply is merge_apply:
                         _kernels.count(merge_apply, "movers", n)
+                    elif movers_only:
+                        _kernels.count(merge_apply_movers, "movers", n)
+                        _kernels.count(segreduce.ordered_sum, "bytes",
+                                       n * sums.shape[0] * 4)
                 num_elim += n
                 passes += 1
             total_passes += passes

@@ -8,9 +8,10 @@ squared Euclidean distance but avoids the float32 cancellation of
 16-bit imagery magnitudes (scores ~1e8) reduced precision exceeds the
 inter-cluster score margins and makes Lloyd's diverge (see the JAX
 package's _assign_scores). The per-cluster sums go through
-segreduce.index_sum, whose float sums on the card are order-fixed: the
-same points and initial centres give the same fit bit for bit on every
-run, as the JAX package promises for a fixed init.
+segreduce.index_sum, whose float sums on the card are serial in point
+order (kernel K4), as on the CPU: the same points and initial centres give
+the same fit bit for bit on every run and on either device, as the JAX
+package promises for a fixed init.
 
 :class:`TorchKMeans` mimics the slice of sklearn's KMeans the reference
 uses (``fit``, ``predict``, ``cluster_centers_``, ``n_clusters``,
@@ -94,7 +95,7 @@ def _lloyd(x, centers, tol_scaled, max_iter: int):
     shift = float("inf")
     while (shift > tol_scaled or had_empty) and it < max_iter:
         labels, mind = _assign(x, c)
-        # order-fixed on the card: a fixed init gives the same fit every run
+        # serial order on the card too: a fixed init gives the same fit
         sums = index_sum(k, labels, x)
         counts = index_sum(k, labels, torch.ones_like(mind))
         new_c = sums / torch.clamp(counts, min=1.0)[:, None]

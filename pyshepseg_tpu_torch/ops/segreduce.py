@@ -7,10 +7,11 @@ independent of the order of the additions, atomics on the card included.
 They become float32 only where a mean is taken. While a segment's sum is
 below 2^24 this equals the JAX package's float32 sums bit for bit; above
 it, it is the exact value where float32 accumulation rounds. Float imagery
-is summed in float32 through :func:`index_sum`: serially in pixel order
-on the CPU, and on the card in a fixed order of its own, so one input
-gives the same bits on every run (they may differ from the CPU's in the
-last place).
+is summed in float32 through :func:`index_sum` in serial order: each bin
+from +0.0, its elements added one at a time in increasing position order,
+which is the CPU's ``index_add_`` and, on the card, kernel K4
+(:func:`ordered_sum`, csrc/ordered_sum.cu). A float tile therefore gives
+the same bits on the card as on the CPU.
 
 The JAX package's run-length variants stand in for the TPU's serial
 scatters and are not ported.
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from .. import _kernels
+from .. import timinghooks
 from .constants import SegIdType, MINSEGID
 
 
@@ -27,55 +29,131 @@ def index_sum(size: int, index, source, dim: int = 0):
     """
     ``torch.zeros(...).index_add_(dim, index, source)`` into ``size`` bins
     along ``dim``, whose float result does not depend on the order of the
-    card's atomics. On the CPU (a serial add in index order) and for
-    integer sums (exact in any order) it is that call; a float sum on the
-    card is :func:`fixed_order_index_sum`.
+    card's atomics. Integer sums (exact in any order) and every sum on the
+    CPU (a serial add in index order) are that call; a float sum on the
+    card is :func:`ordered_sum`, which gives the CPU's bits.
     """
-    if source.device.type != "cuda" or not source.is_floating_point():
-        shape = list(source.shape)
-        shape[dim] = size
-        return torch.zeros(shape, dtype=source.dtype,
-                           device=source.device).index_add_(dim, index,
-                                                            source)
-    return fixed_order_index_sum(size, index, source, dim)
+    if source.device.type == "cuda" and source.is_floating_point():
+        return ordered_sum(size, index, source, dim)
+    return ordered_sum_reference(size, index, source, dim)
 
 
-def fixed_order_index_sum(size: int, index, source, dim: int = 0):
+def ordered_sum_reference(size: int, index, source, dim: int = 0,
+                          skip_bin0=False):
+    """Plain version of :func:`ordered_sum`: ``index_add_`` into zeros,
+    which on the CPU adds each bin's elements serially in position order;
+    with ``skip_bin0``, bin 0 is then set to +0.0."""
+    shape = list(source.shape)
+    shape[dim] = size
+    out = torch.zeros(shape, dtype=source.dtype,
+                      device=source.device).index_add_(dim, index, source)
+    if skip_bin0 and size:
+        out.select(dim, 0).zero_()
+    return out
+
+
+def ordered_sum(size: int, index, source, dim: int = 0, skip_bin0=False):
     """
-    The sums of the slices of ``source`` along ``dim`` into ``size`` bins
-    by ``index``, with no atomics and no host sync: a stable sort by
-    index, then a segmented inclusive scan (Hillis-Steele: ceil(log2 n)
-    rounds, each adding the partial sum ``step`` places back where that
-    lies in the same run), whose last element of each run holds the run's
-    sum and is written to its bin. Every op is order-fixed, so equal
-    inputs give equal bits on any device.
+    Float32 sums of the slices of a 1-D or 2-D ``source`` along ``dim``
+    into ``size`` bins by ``index`` (in [0, size)), with the bits of the
+    CPU's ``torch.zeros(...).index_add_(dim, index, source)``: every bin
+    from +0.0, its elements added in increasing position order. With
+    ``skip_bin0`` the elements of bin 0 are not summed and bin 0 is +0.0
+    (a bin's elements are one serial run of K4, and bin 0, a tile's null
+    segment, may hold most of its pixels; the caller then counts the
+    summed elements' bytes, :func:`count_elements`). On the card, kernel
+    K4 over the keys ``index << 32 | position`` sorted by the library; on
+    the CPU the plain version. Raises for a CUDA tensor that is not
+    float32, and for more than 2^32 elements or 2^31 bins.
     """
-    keys, order = torch.sort(index.reshape(-1).long(), stable=True)
-    rows = source.movedim(dim, 0)
-    n, tail = keys.shape[0], tuple(rows.shape[1:])
-    out = rows.new_zeros((size + 1,) + tail)
-    if n:
-        # two buffers of 2n rows whose first n stay zero, so the partial
-        # sums ``step`` places back are the view buf[n - step:2n - step]
-        bufs = rows.new_zeros((2, 2 * n) + tail)
-        torch.index_select(rows, 0, order, out=bufs[0, n:])
-        # each element's place in its run (its key's first index, by a
-        # binary search of the sorted keys)
-        pos = torch.arange(n, device=keys.device) - torch.searchsorted(
-            keys, keys)
-        pos = pos.view((n,) + (1,) * len(tail))
-        cur, step = 0, 1
-        while step < n:
-            prev = bufs[cur]
-            torch.add(prev[n:], torch.where(pos >= step,
-                                            prev[n - step:2 * n - step], 0),
-                      out=bufs[1 - cur, n:])
-            cur, step = 1 - cur, step * 2
-        # the runs' last elements to their bins, every other to bin ``size``
-        last = torch.ones(n, dtype=torch.bool, device=keys.device)
-        last[:-1] = keys[1:] != keys[:-1]
-        out.index_copy_(0, torch.where(last, keys, size), bufs[cur, n:])
-    return out[:size].movedim(0, dim).contiguous()
+    if source.device.type == "cpu":
+        return ordered_sum_reference(size, index, source, dim, skip_bin0)
+    if (source.device.type != "cuda" or index.device != source.device or
+            source.dtype != torch.float32 or source.dim() > 2 or
+            index.dim() != 1 or index.shape[0] != source.shape[dim]):
+        raise ValueError(
+            "ordered_sum: float32 source of 1 or 2 dims and a 1-D index of "
+            "its length along dim on one CUDA device, got %s %s on %s, "
+            "index %s on %s" % (source.dtype, tuple(source.shape),
+                                source.device, tuple(index.shape),
+                                index.device))
+    n = index.shape[0]
+    if n >= 2 ** 32 or size >= 2 ** 31:
+        raise ValueError("ordered_sum: %d elements into %d bins (at most "
+                         "2^32 - 1 and 2^31 - 1)" % (n, size))
+    shape = list(source.shape)
+    shape[dim] = size
+    out = torch.zeros(shape, dtype=torch.float32, device=source.device)
+    bins = index.long()
+    if skip_bin0:
+        # past the last bin: K4 skips the run
+        bins = bins.masked_fill(bins == 0, size)
+    keys = torch.sort((bins << 32) | torch.arange(
+        n, device=source.device)).values
+    ordered_sum_keys(keys, source, out, dim,
+                     elements=0 if skip_bin0 else None)
+    return out
+
+
+def _rows(t, dim):
+    """(row stride, column stride, columns) of ``t`` as rows along dim."""
+    if t.dim() == 1:
+        return t.stride(0), 0, 1
+    other = 1 - dim
+    return t.stride(dim), t.stride(other), t.shape[other]
+
+
+def ordered_sum_keys(keys, source, out, dim: int = 0, zero_source=False,
+                     elements=None):
+    """
+    Launch K4: for each run of equal bin in the sorted int64 ``keys``
+    (``bin << 32 | position``), add its elements' slices of ``source``
+    along ``dim`` serially in key order from +0.0, and add that total onto
+    the bin's slice of ``out`` (float32, same layout); keys whose bin lies
+    outside ``out`` are skipped. With ``zero_source`` each element's slice
+    is zeroed after it is read (``source`` may then be ``out`` itself, the
+    positions never being bins). One ``segreduce.ordered_sum`` span; the
+    counts ``ordered_sum.launches`` and ``ordered_sum.bytes``: each key
+    read once and, for ``elements`` (all the keys by default; a caller
+    that knows the count only later passes 0 and counts them itself), each
+    element's slice read once and at most one bin's slice written.
+    """
+    dev = keys.device
+    if (dev.type != "cuda" or source.device != dev or out.device != dev or
+            keys.dtype != torch.int64 or keys.dim() != 1 or
+            source.dtype != torch.float32 or out.dtype != torch.float32 or
+            source.dim() != out.dim()):
+        raise ValueError("ordered_sum_keys: int64 keys and float32 source "
+                         "and out on one CUDA device, got %s, %s, %s" % (
+                             keys.dtype, source.dtype, out.dtype))
+    rs, cs, ncols = _rows(source, dim)
+    ors, ocs, ocols = _rows(out, dim)
+    if ocols != ncols:
+        raise ValueError("ordered_sum_keys: %d source columns, %d in out"
+                         % (ncols, ocols))
+    n, nbins = keys.shape[0], out.shape[dim]
+    with timinghooks.span("segreduce.ordered_sum"):
+        with torch.cuda.device(dev):
+            code = _kernels.lib().ordered_sum_launch(
+                keys.data_ptr(), n, source.data_ptr(), rs, cs, ncols,
+                out.data_ptr(), ors, ocs, nbins, int(bool(zero_source)),
+                _kernels.stream_ptr(keys))
+        _kernels.check(code, "ordered_sum")
+    _kernels.count(ordered_sum)
+    _kernels.count(ordered_sum, "bytes", n * 8)
+    count_elements(n if elements is None else elements, ncols, nbins)
+
+
+def count_elements(elements: int, ncols: int, nbins: int):
+    """Add to ``ordered_sum.bytes`` what K4 moves for ``elements`` summed
+    elements of ``ncols`` columns: each read once, and at most one of the
+    ``nbins`` bins written an element."""
+    _kernels.count(ordered_sum, "bytes",
+                   (elements + min(elements, nbins)) * ncols * 4)
+
+
+ordered_sum.launches = 0
+ordered_sum.bytes = 0
 
 
 def seg_sizes(seg, capacity: int):
@@ -125,11 +203,31 @@ def seg_spectral_sums(seg, img, capacity: int):
     return seg_spectral_sums_planes(seg, band_planes(img), capacity)
 
 
-def seg_spectral_sums_planes(seg, band_planes, capacity: int):
-    """Per-segment per-band sums from a tuple of (H, W) band planes."""
+def _stacked(seg, band_planes):
     flat = seg.reshape(-1).long()
     dtype = _sum_dtype(band_planes[0])
     vals = torch.stack([p.reshape(-1).to(dtype) for p in band_planes], dim=1)
+    return flat, vals
+
+
+def seg_spectral_sums_planes(seg, band_planes, capacity: int):
+    """Per-segment per-band sums from a tuple of (H, W) band planes."""
+    flat, vals = _stacked(seg, band_planes)
+    return index_sum(capacity, flat, vals)
+
+
+def seg_spectral_sums_tile(seg, band_planes, capacity: int):
+    """
+    The sums a segmentation reads: :func:`seg_spectral_sums_planes`, but
+    float sums leave row 0 (the null segment, which no merge reads) at
+    +0.0 and do not sum its pixels: on the card a tile's fill would
+    otherwise be one serial run of K4. The caller counts the summed
+    pixels' bytes (:func:`count_elements`). Integer sums are
+    :func:`seg_spectral_sums_planes`'.
+    """
+    flat, vals = _stacked(seg, band_planes)
+    if vals.is_floating_point():
+        return ordered_sum(capacity, flat, vals, skip_bin0=True)
     return index_sum(capacity, flat, vals)
 
 

@@ -34,6 +34,7 @@ from .ops.elim_small import (  # noqa: F401
 from .ops.kmeans import (  # noqa: F401
     TorchKMeans, kmeansFromReference, assign_clusters, predict_labels,
     null_scalar)
+from .ops.segreduce import count_elements, seg_spectral_sums_tile
 from .ops.sync import to_host
 
 
@@ -111,9 +112,13 @@ def segment_on_device(img_dev, centers, nullVal, hasNull, maxSpectralDiff,
             img_f, seg_clump, None, fourConnected, do_relabel=False)
     with timinghooks.span("shepseg.sums"):
         planes = band_planes(img_dev)
-        size, spect = seg_sizes_and_spectral_sums_planes(seg, planes,
-                                                         capacity)
-        nAfterSingle = to_host(torch.count_nonzero(size[MINSEGID:]))
+        size = seg_sizes(seg, capacity)
+        spect = seg_spectral_sums_tile(seg, planes, capacity)
+        nAfterSingle, nNull = to_host(torch.stack(
+            [torch.count_nonzero(size[MINSEGID:]), size[SEGNULLVAL]]))
+        if spect.is_cuda and spect.is_floating_point():
+            # K4 summed every pixel but the null segment's
+            count_elements(seg.numel() - nNull, spect.shape[1], capacity)
     numElimSmall, elimPasses = 0, 0
     remap = torch.arange(capacity, device=device)
     if minSegmentSize > 1:

@@ -234,7 +234,9 @@ def test_graph_elimination_on_card_matches_cpu():
 def test_merge_apply_counts_in_the_trace(dtype):
     """Under a profiler session K3's launches equal the passes run and
     its movers the segments eliminated, for integer imagery; float
-    imagery keeps the order-fixed adds and launches K3 no time."""
+    imagery launches K3 no time, but the movers-only apply once a pass
+    (its movers the segments eliminated) and K4 once a pass and once for
+    the tile's sums, with its bytes and one span a launch."""
     from torch.profiler import ProfilerActivity, profile
     from pyshepseg_tpu_torch import timinghooks
     need_cuda()
@@ -250,9 +252,160 @@ def test_merge_apply_counts_in_the_trace(dtype):
     assert res.elimPasses > 0 and res.smallSegmentsEliminated > 0
     if dtype == np.float32:
         assert "merge_apply.launches" not in counts
+        assert counts["merge_apply_movers.launches"] == res.elimPasses
+        assert (counts["merge_apply_movers.movers"] ==
+                res.smallSegmentsEliminated)
+        assert counts["ordered_sum.launches"] == res.elimPasses + 1
+        assert counts["ordered_sum.bytes"] > 512 * 512 * (8 + 3 * 4)
+        spans = [x for x in timinghooks.TRACE.spans
+                 if x.name == "segreduce.ordered_sum"]
+        assert len(spans) == res.elimPasses + 1
     else:
+        assert "ordered_sum.launches" not in counts
         assert counts["merge_apply.launches"] == res.elimPasses
         assert counts["merge_apply.movers"] == res.smallSegmentsEliminated
+
+
+def _cpu_index_add(size, index, source, dim):
+    shape = list(source.shape)
+    shape[dim] = size
+    return torch.zeros(shape).index_add_(dim, index.cpu(), source.cpu())
+
+
+# the shapes of K4's three callers: a float 4096^2 tile's band sums into
+# a cropland tile's 2^21 ids (some ids empty, runs of ~10 pixels), a
+# graph pass's movers, the k-means Lloyd sums (and counts) of 10^6 points
+# into 60 clusters; then runs longer than one step, single elements, an
+# empty input and bins with nothing in them
+@pytest.mark.parametrize("n,size,ncols,dim", [
+    (4096 * 4096, 2 ** 21, 3, 0), (1581, 2 ** 21, 3, 1),
+    (1_000_000, 60, 4, 0), (1_000_000, 60, None, 0), (300_000, 2, 7, 1),
+    (1, 5, 2, 0), (0, 5, 3, 0), (33, 1, None, 0), (4097, 4096, 5, 1)])
+def test_ordered_sum_kernel_equals_cpu_index_add(n, size, ncols, dim):
+    """K4's sums equal the CPU's index_add_ into zeros bit for bit (its
+    serial order), on values whose sums round in float32, with -0.0
+    among them; a second launch gives the same bits."""
+    need_cuda()
+    gen = torch.Generator().manual_seed(n + size)
+    index = torch.randint(0, size, (n,), generator=gen)
+    shape = (n,) if ncols is None else ((n, ncols) if dim == 0 else
+                                        (ncols, n))
+    source = 0.3 + torch.rand(shape, generator=gen) * 1e-3 * torch.randn(
+        shape, generator=gen)
+    source.view(-1)[::97] = -0.0
+    want = _cpu_index_add(size, index, source, dim)
+    before = segreduce.ordered_sum.launches
+    got = segreduce.ordered_sum(size, index.cuda(), source.cuda(), dim)
+    again = segreduce.index_sum(size, index.cuda(), source.cuda(), dim)
+    assert segreduce.ordered_sum.launches == before + 2
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert torch.equal(got.cpu().view(torch.int32),
+                       want.view(torch.int32))
+    assert torch.equal(again, got)
+
+
+def test_ordered_sum_kernel_rejects_what_it_does_not_take():
+    need_cuda()
+    idx = torch.zeros(8, dtype=torch.int64, device="cuda")
+    for src in (torch.zeros(8, dtype=torch.float64, device="cuda"),
+                torch.zeros((8, 2, 2), device="cuda"),
+                torch.zeros(7, device="cuda")):
+        with pytest.raises(ValueError):
+            segreduce.ordered_sum(4, idx, src)
+    with pytest.raises(ValueError):
+        segreduce.ordered_sum(4, idx.cpu(), torch.zeros(8, device="cuda"))
+
+
+@pytest.mark.parametrize("capacity", [1024, 1_580_534])
+@pytest.mark.parametrize("share", ["none", "sparse", "all"])
+@pytest.mark.parametrize("nbands", [1, 3, 7])
+def test_merge_apply_movers_on_card_matches_plain(capacity, share, nbands):
+    """The movers-only float apply on the card (selection kernel, a sort
+    of one key a candidate, K4) against merge_apply_reference on the CPU,
+    bit for bit: merge map, sizes, float32 sums, mover count; size and
+    sums updated in place; one selection launch and at most one K4
+    launch, its keys one a candidate, never the capacity."""
+    need_cuda()
+    size, sums, best_nbr, d_best = merge_apply_case(
+        np.random.default_rng(capacity + nbands), capacity, nbands, share)
+    sums = (sums.to(torch.float32) * 1e-6 + 0.1).contiguous()
+    want = elim_small.merge_apply_reference(size, sums, best_nbr, d_best,
+                                            5, 100.0)
+    candidates = int((size == 5).sum())
+    args = [t.cuda() for t in (size, sums, best_nbr, d_best)]
+    before = (elim_small.merge_apply_movers.launches,
+              segreduce.ordered_sum.launches,
+              elim_small.merge_apply.launches)
+    got = elim_small.merge_apply_movers(*args, 5, 100.0, candidates)
+    assert got[1] is args[0] and got[2] is args[1]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert (elim_small.merge_apply_movers.launches - before[0],
+            segreduce.ordered_sum.launches - before[1],
+            elim_small.merge_apply.launches - before[2]) == (1, 1, 0)
+    assert candidates < capacity
+
+
+@pytest.mark.parametrize("n,size,ncols,dim", [
+    (4096 * 4096, 2 ** 21, 3, 0), (1_000_000, 60, None, 0),
+    (4097, 4096, 5, 1)])
+def test_ordered_sum_kernel_leaves_out_bin_0(n, size, ncols, dim):
+    """With skip_bin0 (a tile's sums, its null segment left out) K4 gives
+    the CPU's bits: bin 0 +0.0, every other bin the serial sum; 39 % of
+    the elements are in bin 0, a Landsat scene's share of fill."""
+    need_cuda()
+    gen = torch.Generator().manual_seed(n + size + 1)
+    index = torch.randint(0, size, (n,), generator=gen)
+    index[torch.rand(n, generator=gen) < 0.39] = 0
+    shape = (n,) if ncols is None else ((n, ncols) if dim == 0 else
+                                        (ncols, n))
+    source = 0.3 + 1e-3 * torch.randn(shape, generator=gen)
+    want = segreduce.ordered_sum(size, index, source, dim, skip_bin0=True)
+    got = segreduce.ordered_sum(size, index.cuda(), source.cuda(), dim,
+                                skip_bin0=True)
+    assert torch.all(want.select(dim, 0) == 0)
+    assert torch.equal(got.cpu().view(torch.int32),
+                       want.view(torch.int32))
+
+
+@pytest.mark.parametrize("fill", [0.0, 0.39])
+def test_float_tile_on_card_matches_cpu(monkeypatch, fill):
+    """doShepherdSegmentation of a float32 reflectance tile on the card
+    equals the CPU run bit for bit: labels, singles, segments eliminated
+    and passes; every pass goes through the movers-only apply, none
+    through K3, and no K4 launch of a pass takes more keys than the
+    pass's candidates. With fill (the left 39 % nodata) as without."""
+    need_cuda()
+    img, _ = voronoi_image(np.random.default_rng(8), shape=(1024, 1024),
+                           ncentres=2000, noise=40)
+    img = ((img.astype(np.float32) - 1000) / np.float32(10000))
+    img[:, :, :int(1024 * fill)] = -9999.0
+    km = shepseg.fitSpectralClusters(img, 30, 100, -9999.0, True,
+                                     device="cpu")
+    kw = dict(kmeansObj=km, minSegmentSize=60, maxSpectralDiff="auto",
+              imgNullVal=-9999.0)
+    want = shepseg.doShepherdSegmentation(img, device="cpu", **kw)
+    keys = []
+    launch = segreduce.ordered_sum_keys
+
+    def recording(k, *a, **kws):
+        keys.append(int(k.shape[0]))
+        return launch(k, *a, **kws)
+    monkeypatch.setattr(segreduce, "ordered_sum_keys", recording)
+    before = (elim_small.merge_apply_movers.launches,
+              elim_small.merge_apply.launches)
+    got = shepseg.doShepherdSegmentation(img, device="cuda", **kw)
+    assert want.smallSegmentsEliminated > 0
+    np.testing.assert_array_equal(got.segimg, want.segimg)
+    assert got.singlePixelsEliminated == want.singlePixelsEliminated
+    assert got.smallSegmentsEliminated == want.smallSegmentsEliminated
+    assert got.elimPasses == want.elimPasses
+    assert (elim_small.merge_apply_movers.launches - before[0],
+            elim_small.merge_apply.launches - before[1]) == (
+                got.elimPasses, 0)
+    # the tile's sums take one key a pixel; each pass one a candidate
+    assert keys[0] == 1024 * 1024 and len(keys) == got.elimPasses + 1
+    assert max(keys[1:]) < 1024 * 1024 // 20
 
 
 @pytest.mark.parametrize("four_connected", [True, False])
@@ -612,7 +765,7 @@ def test_spatial_device_engine_on_card_matches_cpu(tmp_path):
 def test_kmeans_fit_on_card_is_reproducible(fixed):
     """Two fits of the same points on the card, fixed init or k-means++
     from one seed, give centres equal bit for bit (the per-cluster float
-    sums are order-fixed), and inertia and iterations equal too."""
+    sums are serial, K4), and inertia and iterations equal too."""
     need_cuda()
     from pyshepseg_tpu_torch.ops import kmeans
     rng = np.random.default_rng(12)
@@ -631,8 +784,8 @@ def test_kmeans_fit_on_card_is_reproducible(fixed):
 
 def test_float_image_segments_the_same_twice_on_card():
     """A float32 image, its k-means fitted inside each call: two calls on
-    the card give the same segimg (order-fixed k-means, spectral and
-    graph-pass sums)."""
+    the card give the same segimg (serial k-means, spectral and
+    graph-pass sums, K4)."""
     need_cuda()
     img, _ = voronoi_image(np.random.default_rng(6), shape=(768, 640),
                            ncentres=300, noise=60)

@@ -191,11 +191,13 @@ def test_host_helpers_match_jax(rng):
                 jax_shepseg.autoMaxSpectralDiff(FakeKM(), setting, 50))
 
 
-# ------------------------------------------- order-fixed float sums
+# ------------------------------------------- serial float sums
 # On the CPU index_sum is index_add_ itself (a serial add in index order),
-# so every CPU result pinned above is unchanged. The card's float route,
-# fixed_order_index_sum, is torch ops that run on the CPU as well: these
-# tests hold its arithmetic there.
+# so every CPU result pinned above is unchanged. On the card float sums
+# go through K4 (segreduce.ordered_sum), whose plain version runs here, and
+# float graph passes through the movers-only apply, whose plain version is
+# merge_apply_reference; K4's own contract is held in
+# test_torch_float_imagery.py and, on the card, in test_torch_cuda.py.
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int64])
@@ -211,45 +213,21 @@ def test_index_sum_on_cpu_is_index_add(rng, dtype, dim):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n,k", [(0, 4), (1, 4), (2, 1), (7, 3), (1000, 1),
-                                 (1000, 13), (4097, 4096), (3000, 60)])
-@pytest.mark.parametrize("dim", [0, 1])
-def test_fixed_order_index_sum(rng, n, k, dim):
-    """Exact for integer-valued floats (every order gives the same sum),
-    float32-close for any values, the same bits on a second call, and
-    empty bins stay 0."""
-    idx = torch.from_numpy(rng.integers(0, k, size=n))
-    for vals in (rng.integers(-1000, 1000, size=(n, 4)),
-                 rng.normal(0, 100, size=(n, 4))):
-        src = torch.from_numpy(vals.astype(np.float32))
-        if dim == 1:
-            src = src.T.contiguous()
-        shape = (k, 4) if dim == 0 else (4, k)
-        want = torch.zeros(shape).index_add_(dim, idx, src)
-        got = segreduce.fixed_order_index_sum(k, idx, src, dim)
-        again = segreduce.fixed_order_index_sum(k, idx, src, dim)
-        assert torch.equal(got, again)
-        if vals.dtype.kind == "i":
-            assert torch.equal(got, want)
-        else:
-            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
-                                       atol=1e-2)
-
-
 def _card_sums(monkeypatch, *modules):
-    """Route index_sum through the card's float algorithm on the CPU."""
+    """Route index_sum through the card's float route (K4's plain
+    version) on the CPU."""
     plain = segreduce.index_sum
 
-    def fixed(size, index, source, dim=0):
+    def ordered(size, index, source, dim=0):
         if not source.is_floating_point():
             return plain(size, index, source, dim)
-        return segreduce.fixed_order_index_sum(size, index, source, dim)
+        return segreduce.ordered_sum(size, index, source, dim)
     for mod in modules:
-        monkeypatch.setattr(mod, "index_sum", fixed)
+        monkeypatch.setattr(mod, "index_sum", ordered)
 
 
 def test_fit_with_card_sums_matches_jax(rng, monkeypatch):
-    """The fixed-init fit through the card's order-fixed sums against the
+    """The fixed-init fit through the card's serial sums against the
     JAX package's fit (rtol 1e-4, as test_fixed_init_fit_matches_jax)."""
     _card_sums(monkeypatch, kmeans)
     x = _blob_data(rng)
